@@ -1,0 +1,99 @@
+// In-kernel modular arithmetic and the shared-memory NTT, on native u64.
+//
+// Replaces the TPU kernels' u32-pair helpers: ntt_pallas._shoup_mul /
+// _condsub / _halfq and the CT/GS butterflies (aloha_tpu/ops/
+// ntt_pallas.py:95-173), ntt_stream._shoup_mul_limb (ntt_stream.py:188) and
+// rns_jax.*64.  Hopper has 64-bit integer lanes and __umul64hi, so a
+// 60x64-bit product is two multiplies instead of the TPU's 16-bit limb
+// columns.
+//
+// Moduli are below 2^60, so the Harvey window [0, 4q) of the forward
+// transform fits a u64 with room to spare.
+#pragma once
+
+#include <cuda_runtime.h>
+
+typedef unsigned long long u64;
+
+// Threads per CTA of every kernel: an 8192-point transform has 4096
+// butterflies per stage, 8 per thread.
+#define ALOHA_THREADS 512
+
+__device__ __forceinline__ u64 condsub(u64 x, u64 q) { return x >= q ? x - q : x; }
+
+// a, b < q
+__device__ __forceinline__ u64 addmod(u64 a, u64 b, u64 q) { return condsub(a + b, q); }
+
+// a, b < q
+__device__ __forceinline__ u64 submod(u64 a, u64 b, u64 q) { return a >= b ? a - b : a + q - b; }
+
+// a/2 mod q for a < q (reference: src/vp/vxu/halfred.sv:21-27)
+__device__ __forceinline__ u64 halfmod(u64 a, u64 q) {
+  return (a >> 1) + ((a & 1ull) ? (q + 1) >> 1 : 0ull);
+}
+
+// Shoup multiply: x*w mod q in [0, 2q) for any x, with w < q and
+// ws = floor(w 2^64 / q).
+__device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 ws, u64 q) {
+  u64 t = __umul64hi(x, ws);
+  return x * w - t * q;
+}
+
+// The RTL Barrett chain (reference: src/vp/vxu/modmul.sv:145-232) for
+// inputs a, b < q < 2^w; iq = floor(2^(2w+1) / q).  Equal to exact a*b mod q.
+__device__ __forceinline__ u64 barrett(u64 a, u64 b, u64 q, u64 iq, int w) {
+  u64 lo = a * b, hi = __umul64hi(a, b);
+  u64 ps = (lo >> (w - 2)) | (hi << (64 - (w - 2)));
+  u64 mlo = ps * iq, mhi = __umul64hi(ps, iq);
+  u64 ms = (mlo >> (w + 3)) | (mhi << (64 - (w + 3)));
+  u64 mask = (1ull << (w + 1)) - 1;
+  u64 diff = (((lo & mask) | (1ull << (w + 1))) - ((ms * q) & mask)) & mask;
+  return condsub(diff, q);
+}
+
+// Forward negacyclic NTT of the n = 2^logn values in shared memory a[]:
+// natural order in (entries < 4q), bit-reversed order out, canonical.
+// Cooley-Tukey with Harvey's lazy butterflies: values ride in [0, 4q)
+// between stages; stage s, group k uses twiddle w[2^s + k].
+__device__ __forceinline__ void ntt_smem(u64* a, int logn, const u64* __restrict__ w,
+                                         const u64* __restrict__ ws, u64 q) {
+  const int n = 1 << logn;
+  const u64 q2 = 2 * q;
+  for (int s = 0; s < logn; ++s) {
+    const int sh = logn - 1 - s;  // log2 of the butterfly distance t
+    const int t = 1 << sh;
+    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
+      const int k = b >> sh;
+      const int i = (k << (sh + 1)) + (b & (t - 1));
+      const u64 tw = w[(1 << s) + k], tws = ws[(1 << s) + k];
+      const u64 x = condsub(a[i], q2);
+      const u64 y = shoup_mul(a[i + t], tw, tws, q);
+      a[i] = x + y;
+      a[i + t] = x + q2 - y;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = condsub(condsub(a[i], q2), q);
+  __syncthreads();
+}
+
+// Inverse negacyclic NTT in shared memory: bit-reversed order in
+// (canonical), natural order out, canonical.  Gentleman-Sande with the
+// n^-1 scale folded in as a halving at every stage (reference:
+// src/vp/vxu/modalu.sv GS_VVS path); stage s, group k uses w[n/2^(s+1) + k].
+__device__ __forceinline__ void intt_smem(u64* a, int logn, const u64* __restrict__ w,
+                                          const u64* __restrict__ ws, u64 q) {
+  const int n = 1 << logn;
+  for (int s = 0; s < logn; ++s) {
+    const int t = 1 << s;
+    const int h = n >> (s + 1);
+    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
+      const int k = b >> s;
+      const int i = (k << (s + 1)) + (b & (t - 1));
+      const u64 u = a[i], v = a[i + t];
+      a[i] = halfmod(addmod(u, v, q), q);
+      a[i + t] = halfmod(condsub(shoup_mul(u + q - v, w[h + k], ws[h + k], q), q), q);
+    }
+    __syncthreads();
+  }
+}

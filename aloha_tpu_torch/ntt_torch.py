@@ -1,0 +1,139 @@
+"""Negacyclic NTT/INTT, automorphisms and twiddle tables (the port of `ntt_jax`).
+
+Transform semantics are `aloha_tpu.ntt_np`'s: the forward NTT is
+Cooley-Tukey, natural order in, bit-reversed order out, with twiddles
+psi^bitrev(m + k); the inverse is Gentleman-Sande, bit-reversed in,
+natural out, halving at every stage (the folded n^-1).  Outputs are
+canonical [0, q), so any exact butterfly arithmetic gives the same words.
+
+Tables are compact: per modulus and direction the n twiddles
+root^bitrev(i) and their Shoup companions floor(w 2^64 / q) (stored as the
+u64 bit pattern in int64).  Stage s of the forward transform reads entries
+[2^s, 2^(s+1)), stage s of the inverse reads [n/2^(s+1), n/2^s).  The TPU's
+per-element (logn, rows, 128) tables existed only for its (8, 128) layout.
+
+The functions here are the plain PyTorch forms; `ops.ntt_stream` puts the
+CUDA kernel beside them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from aloha_tpu import ntt_np
+from aloha_tpu_torch import rns_torch as rt
+
+
+@functools.lru_cache(maxsize=None)
+def twiddles_np(n: int, root: int, q: int):
+    """(w, wshoup) uint64 arrays of length n: root^bitrev(i) mod q and
+    floor(w 2^64 / q)."""
+    w = ntt_np.psi_powers_bitrev(n, root, q)
+    ws = np.array([(int(v) << 64) // q for v in w], dtype=np.uint64)
+    return w, ws
+
+
+@functools.lru_cache(maxsize=64)
+def tables(n: int, qs: tuple, roots: tuple, device: torch.device):
+    """Stacked per-modulus tables on `device`: (w, wshoup) int64 (M, n)
+    and the moduli q (M,) int64."""
+    per = [twiddles_np(n, r, q) for r, q in zip(roots, qs)]
+    w = np.stack([p[0] for p in per]).view(np.int64)
+    ws = np.stack([p[1] for p in per]).view(np.int64)
+    return (
+        torch.from_numpy(w).to(device),
+        torch.from_numpy(ws).to(device),
+        torch.tensor(qs, dtype=torch.int64, device=device),
+    )
+
+
+def ntt(a, q: int, psi: int):
+    """Forward negacyclic NTT over the last axis, canonical output.
+    Input entries < 4q (the CUDA kernel's Harvey window)."""
+    n = a.shape[-1]
+    w, ws, _ = tables(n, (q,), (psi,), a.device)
+    w, ws = w[0], ws[0]
+    batch = a.shape[:-1]
+    a = a % q
+    t, m = n, 1
+    while m < n:
+        t //= 2
+        v = a.reshape(batch + (m, 2, t))
+        u = v[..., 0, :]
+        x = rt.lazy_reduce(
+            rt.mulmod_shoup(
+                v[..., 1, :], w[m:2 * m, None], ws[m:2 * m, None], q
+            ),
+            q,
+        )
+        a = torch.stack(
+            [rt.addmod(u, x, q), rt.submod(u, x, q)], dim=-2
+        ).reshape(batch + (n,))
+        m *= 2
+    return a
+
+
+def intt(a, q: int, ipsi: int):
+    """Inverse negacyclic NTT over the last axis, halving per GS stage.
+    Input entries < 2q."""
+    n = a.shape[-1]
+    w, ws, _ = tables(n, (q,), (ipsi,), a.device)
+    w, ws = w[0], ws[0]
+    batch = a.shape[:-1]
+    a = rt.lazy_reduce(a, q)
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        v = a.reshape(batch + (h, 2, t))
+        u, x = v[..., 0, :], v[..., 1, :]
+        s0 = rt.halfmod(rt.addmod(u, x, q), q)
+        d = rt.submod(u, x, q)
+        s1 = rt.halfmod(
+            rt.lazy_reduce(
+                rt.mulmod_shoup(d, w[h:2 * h, None], ws[h:2 * h, None], q), q
+            ),
+            q,
+        )
+        a = torch.stack([s0, s1], dim=-2).reshape(batch + (n,))
+        t *= 2
+        m = h
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def _aut_maps(n: int, step: int, device: torch.device):
+    """Gather index and sign mask of X -> X^step (coefficient domain):
+    out[d] = sign[d] ? q - a[src[d]] : a[src[d]]."""
+    i = np.arange(n, dtype=np.int64)
+    j = (i * step) % (2 * n)
+    src = np.empty(n, dtype=np.int64)
+    src[j % n] = i
+    neg = np.zeros(n, dtype=bool)
+    neg[j % n] = j >= n
+    return torch.from_numpy(src).to(device), torch.from_numpy(neg).to(device)
+
+
+def automorphism(a, step: int, q: int):
+    """X -> X^step over the last axis with the RTL sign rule: a negated
+    coefficient is written as the literal q - x, so 0 becomes q
+    (reference: src/vp/vxu/vxu_lane.sv:594-598)."""
+    src, neg = _aut_maps(a.shape[-1], step % (2 * a.shape[-1]), a.device)
+    g = a.index_select(-1, src)
+    return torch.where(neg, q - g, g)
+
+
+@functools.lru_cache(maxsize=256)
+def aut_perm(n: int, e: int, device: torch.device):
+    """NTT-domain automorphism X -> X^e as a gather index (ntt_np.ntt_aut_perm)."""
+    return torch.from_numpy(ntt_np.ntt_aut_perm(n, e).astype(np.int64)).to(
+        device
+    )
+
+
+def ntt_domain_aut(x, e: int):
+    """Apply X -> X^e to NTT-domain data (..., n): one gather.  Equal word
+    for word to NTT(automorphism(INTT(x)))."""
+    return x.index_select(-1, aut_perm(x.shape[-1], e, x.device))

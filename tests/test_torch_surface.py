@@ -1,0 +1,171 @@
+"""The port's surface: no JAX, no CPU fallback on the card path, state conversion.
+
+- `import aloha_tpu_torch` and every submodule leaves `jax` out of
+  sys.modules (checked in a fresh interpreter);
+- the CUDA wrappers import and dispatch without nvcc; building without
+  nvcc raises instead of falling back;
+- `python chip_smoke.py` on a host without CUDA exits nonzero and prints
+  no result, in the repo and alone in an empty directory;
+- convert round-trips u64 arrays, (lo, hi) planes and tensors.
+"""
+
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from aloha_tpu import he_planes
+from aloha_tpu.config import DEFAULT_CONFIG as CFG
+from aloha_tpu_torch import _build, convert as cv
+from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_stream
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CPU = torch.device("cpu")
+
+
+def _run(args, cwd, timeout=300):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys, aloha_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(aloha_tpu_torch.__path__,"
+        " 'aloha_tpu_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'triton')))\n"
+    )
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    count, loaded = res.stdout.strip().split(" ", 1)
+    assert int(count) >= 8
+    assert loaded == "[]"
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "lib.so")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_library_is_named_by_the_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
+    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "modarith.cuh"}
+
+
+def test_dispatch_routes_by_device():
+    x = torch.zeros(3, dtype=torch.int64)
+    assert dispatch.use_kernel(x) is False
+    with pytest.raises(ValueError, match="no kernel"):
+        dispatch.use_kernel(x.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        dispatch.use_kernel(x, x.to("meta"))
+
+
+def test_wrappers_raise_off_cpu_instead_of_falling_back():
+    x = torch.zeros((1, 2, 1024), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        ntt_stream.transform(x, CFG.moduli[:1], CFG.psi[:1], False)
+    with pytest.raises(ValueError):
+        ks_kernel.ks_head(torch.zeros((2, 1, 8192), dtype=torch.int64, device="meta"),
+                          None, CFG)
+
+
+def test_check_rejects_bad_operands():
+    x = torch.zeros((2, 4), dtype=torch.int64)
+    dispatch.check(x, (2, 4), "x")
+    with pytest.raises(TypeError):
+        dispatch.check(x.to(torch.int32), (2, 4), "x")
+    with pytest.raises(ValueError, match="shape"):
+        dispatch.check(x, (4, 2), "x")
+    with pytest.raises(ValueError, match="contiguous"):
+        dispatch.check(x.t(), (4, 2), "x")
+
+
+def _assert_no_result(res):
+    assert res.returncode != 0
+    lines = res.stdout.strip().splitlines()
+    if lines:
+        try:
+            last = json.loads(lines[-1])
+        except ValueError:
+            return
+        assert last.get("ok") is not True
+
+
+def test_chip_smoke_fails_without_cuda():
+    _assert_no_result(_run(["chip_smoke.py"], ROOT))
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    _assert_no_result(res)
+
+
+def test_convert_round_trips_u64_planes_tensors():
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 1 << 64, size=(2, 3, 256), dtype=np.uint64)
+    t = cv.from_u64(a, CPU)
+    assert t.dtype == torch.int64 and t.shape == a.shape
+    assert np.array_equal(cv.to_u64(t), a)
+    lo, hi = cv.to_planes(t)
+    assert torch.equal(cv.from_planes(lo, hi, CPU), t)
+    jlo, jhi = he_planes.from_u64(a)  # the he_planes form
+    assert np.array_equal(np.asarray(jlo), lo) and np.array_equal(np.asarray(jhi), hi)
+    assert np.array_equal(np.asarray(he_planes.to_u64((jlo, jhi))), a)
+
+
+def test_convert_ciphertexts_and_keys():
+    from aloha_tpu import he_np
+
+    rng = np.random.default_rng(2)
+    L, n = CFG.n_limbs, CFG.n
+    ct = he_np.Ciphertext(a=rng.integers(0, CFG.moduli[0], (L, n), dtype=np.uint64),
+                          b=rng.integers(0, CFG.moduli[0], (L, n), dtype=np.uint64))
+    back = cv.ct_to_np(cv.ct_from_np(ct, CPU))
+    assert np.array_equal(back.a, ct.a) and np.array_equal(back.b, ct.b)
+    flat = rng.integers(0, CFG.moduli[0], 2 * L * (L + 1) * n, dtype=np.uint64)
+    k = cv.ksk_from_np(flat, CFG, CPU)
+    assert k.shape == (2 * L * (L + 1), n)
+    assert np.array_equal(cv.to_u64(k).ravel(), flat)
+    with pytest.raises(ValueError, match="2L"):
+        cv.ksk_from_np(flat[:-1], CFG, CPU)
+
+
+def test_prepared_planes_round_trip():
+    """The JAX prepare_ksk plane form (k lo/hi + four 16-bit Shoup limb
+    planes) converts to the port's (k, kshoup) words."""
+    L, n = CFG.n_limbs, CFG.n
+    k, ks = ks_kernel.prepare_ksk(
+        cv.from_u64(np.random.default_rng(3).integers(
+            0, CFG.moduli[0], (2 * L * (L + 1), n), dtype=np.uint64), CPU), CFG)
+    s = cv.to_u64(ks)
+    klo, khi = cv.to_planes(k)
+    limbs = [((s >> np.uint64(16 * i)) & np.uint64(0xFFFF)).astype(np.uint32)
+             for i in range(4)]
+    shape = (-1, n // 128, 128)
+    planes = [p.reshape(shape) for p in (klo, khi, *limbs)]
+    k2, ks2 = cv.prepared_from_planes(planes, CFG, CPU)
+    assert torch.equal(k2, k) and torch.equal(ks2, ks)
