@@ -31,6 +31,7 @@ SIGNATURES = {
     "aloha_ntt": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "aloha_ks_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
+    "aloha_ntt_mxu": [_I] + [_P] * 9 + [_I] * 5 + [_P],
 }
 
 

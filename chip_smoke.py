@@ -8,14 +8,21 @@ Phases, each printing its own line; any failure exits nonzero:
      as `nvidia-smi --query-gpu=name,power.limit` gives it;
   2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a) into
      aloha_tpu_torch/_build/;
-  3. kernels: ntt, ks_head and ks_tail at N=8192 against their plain
+  3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
+     directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
   4. serve: three encrypted matrix-vector requests, each a batch of 16
      ciphertexts through he_torch.matvec_bsgs (D=16 diagonals, g=4) and
      rescale; decrypts within 0.15 of the cleartext product, ciphertext 0
      of request 0 word-exact against aloha_tpu.he_np, and every kernel
-     launched by the requests.
-The line before the last is a JSON object of the kernels; the last line is
+     launched by the requests;
+  5. bench: ntt, ntt_mxu and the chain (k=64) at the bench's own shapes
+     and inputs against their plain versions (torch.equal); then
+     aloha_tpu_torch.bench.run at N=8192, batch 256, the fused chain cut
+     to k=64: each form's NTT/s, bit-exact against the ntt_np chain, with
+     ntt and both ntt_mxu wrappers launched.
+The line before the last is a JSON object of the kernels (launches summed
+over the serve and bench paths, and per path); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -29,6 +36,7 @@ import traceback
 SEED = 2024
 B, D, G = 16, 16, 4  # ciphertexts per request, diagonals, baby steps
 REQUESTS = 3
+BENCH = dict(batch=256, chain_k=64)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
 
 
@@ -84,6 +92,23 @@ def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
     return statistics.median(times)
 
 
+def check(results: dict, card: str, kernel: str, label: str, run, run_plain,
+          warmup: int = 3, iters: int = 15):
+    """Fail unless run() is torch.equal to run_plain(); time both."""
+    import torch
+
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item()) if got.numel() else 0
+    if not torch.equal(got, want):
+        fail(f"{kernel} {label}: kernel differs from plain (max_abs_err={err})")
+    k_us = time_us(run, warmup, iters)
+    p_us = time_us(run_plain, warmup, iters)
+    print(f"kernel {kernel} {label}: equal=True kernel_us={k_us:.1f} "
+          f"plain_us={p_us:.1f} on {card}", flush=True)
+    results.setdefault(kernel, []).append((label, err, k_us, p_us))
+
+
 def phase_kernels(card: str, dev):
     import numpy as np
     import torch
@@ -91,7 +116,7 @@ def phase_kernels(card: str, dev):
     from aloha_tpu.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch import convert as cv
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
-    from aloha_tpu_torch.ops import ntt_stream
+    from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
 
     rng = np.random.default_rng(SEED)
     L, n, mod = CFG.n_limbs, CFG.n, CFG.moduli
@@ -105,15 +130,7 @@ def phase_kernels(card: str, dev):
         )
 
     def case(kernel, label, run, run_plain):
-        got, want = run(), run_plain()
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item()) if got.numel() else 0
-        if not torch.equal(got, want):
-            fail(f"{kernel} {label}: kernel differs from plain (max_abs_err={err})")
-        k_us, p_us = time_us(run), time_us(run_plain)
-        print(f"kernel {kernel} {label}: equal=True kernel_us={k_us:.1f} "
-              f"plain_us={p_us:.1f} on {card}", flush=True)
-        results.setdefault(kernel, []).append((label, err, k_us, p_us))
+        check(results, card, kernel, label, run, run_plain)
 
     # ntt: a multi-modulus case (M=3, nb=64), then rescale's shapes (B=16 x 2 parts)
     x3 = rand((64, n), mod)
@@ -167,7 +184,69 @@ def phase_kernels(card: str, dev):
     case("ks_tail", f"single nb={B} barrett",
          lambda: ksk_ops.ks_tail(nd, rider, keys3[0], CFG),
          lambda: ksk_ops.ks_tail_plain(nd, rider, keys3[0], CFG))
+
+    # ntt_mxu: each modulus alone, both directions; then the fused chain
+    for m, name in enumerate(("q0", "q1", "P")):
+        xm = rand((64, n), mod[m:m + 1])
+        for inv, roots in ((False, CFG.psi), (True, CFG.ipsi)):
+            label = f"{'inv' if inv else 'fwd'} {name} nb=64"
+            case("ntt_mxu", label,
+                 lambda: ntt_mxu.transform(xm, mod[m:m + 1], roots[m:m + 1], inv),
+                 lambda: ntt_mxu.transform_plain(xm, mod[m:m + 1], roots[m:m + 1], inv))
+    for m, name in ((0, "q0"), (2, "P")):
+        xc = rand((16, n), mod[m:m + 1])[0]
+        for inv, root in ((False, CFG.psi[m]), (True, CFG.ipsi[m])):
+            label = f"{'inv' if inv else 'fwd'} {name} k=3 nb=16"
+            case("ntt_mxu_chain", label,
+                 lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
+                 lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv))
     return results
+
+
+def phase_bench(card: str, dev, results: dict):
+    import numpy as np
+
+    from aloha_tpu.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch import bench
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
+
+    # each wrapper at the bench's own shapes and inputs, against its plain version
+    n, q, psi = CFG.n, CFG.moduli[0], CFG.psi[0]
+    nb, k = BENCH["batch"], BENCH["chain_k"]
+    x = cv.from_u64(np.random.default_rng(0).integers(0, q, size=(nb, n), dtype=np.uint64),
+                    dev)
+    x1 = x[None]
+    check(results, card, "ntt", f"fwd q0 (1, {nb}, {n}) bench",
+          lambda: ntt_stream.transform(x1, (q,), (psi,), False),
+          lambda: ntt_stream.transform_plain(x1, (q,), (psi,), False), 1, 3)
+    check(results, card, "ntt_mxu", f"fwd q0 (1, {nb}, {n}) bench",
+          lambda: ntt_mxu.transform(x1, (q,), (psi,), False),
+          lambda: ntt_mxu.transform_plain(x1, (q,), (psi,), False), 1, 3)
+    check(results, card, "ntt_mxu_chain", f"fwd q0 k={k} nb={nb} bench",
+          lambda: ntt_mxu.chain(x, q, psi, k, False),
+          lambda: ntt_mxu.chain_plain(x, q, psi, k, False), 0, 1)
+
+    # the main path: counts start at 0 here
+    counters = {"ntt": ntt_stream.transform, "ntt_mxu": ntt_mxu.transform,
+                "ntt_mxu_chain": ntt_mxu.chain}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = bench.run(card_line=card, **BENCH)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for rec in records:
+        print(f"bench {rec['metric']}: {rec['value']:.1f} NTT/s (batch {rec['batch']}, "
+              f"chain {rec['chain']}) bitexact={rec['bitexact']} on {rec['card']}",
+              flush=True)
+    print(f"bench: {time.perf_counter() - t0:.1f} s, launches={launches}", flush=True)
+    for rec in records:
+        if not rec["bitexact"]:
+            fail(f"bench {rec['metric']} is not bit-exact against the ntt_np chain")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the bench")
+    return launches
 
 
 def phase_serve(card: str, dev):
@@ -274,26 +353,35 @@ def main():
         phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
-        launches = phase_serve(card, dev)
+        paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results)}
     except SystemExit:
         raise
     except Exception:
         traceback.print_exc()
         fail("a phase raised")
+    from aloha_tpu.config import DEFAULT_CONFIG as CFG
+
+    nb, n, k = BENCH["batch"], CFG.n, BENCH["chain_k"]
     meta = {
         "ntt": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:721",
-                "aloha_tpu/ops/ntt_stream.py:814", f"inv M=1 nb={2 * B} (rescale)"),
+                "aloha_tpu/ops/ntt_stream.py:814", f"fwd q0 (1, {nb}, {n}) bench"),
         "ks_head": ("aloha_tpu_torch/csrc/ks.cu", "aloha_tpu/ops/ks_kernel.py:478",
                     None, f"hoisted nb={B}"),
         "ks_tail": ("aloha_tpu_torch/csrc/ks.cu", "aloha_tpu/ops/ks_kernel.py:568",
                     None, f"shared K=3 nb={B} (baby steps)"),
+        "ntt_mxu": ("aloha_tpu_torch/csrc/ntt_mxu.cu", "aloha_tpu/ops/ntt_mxu.py:653",
+                    None, f"fwd q0 (1, {nb}, {n}) bench"),
+        "ntt_mxu_chain": ("aloha_tpu_torch/csrc/ntt_mxu.cu", "aloha_tpu/ops/ntt_mxu.py:860",
+                          "aloha_tpu/ops/ntt_mxu.py:742", f"fwd q0 k={k} nb={nb} bench"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():
         rows = results[name]
         _, _, k_us, p_us = next(r for r in rows if r[0] == main_case)
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
         entry = {"name": name, "route": "cuda", "source": src, "replaces": repl,
-                 "launches": launches[name], "max_abs_err": max(r[1] for r in rows),
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "max_abs_err": max(r[1] for r in rows),
                  "ms": k_us / 1e3, "plain_ms": p_us / 1e3, "shape": main_case}
         if also:
             entry["also_replaces"] = also

@@ -17,7 +17,7 @@ from aloha_tpu import he_np, keys
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
-from aloha_tpu_torch.ops import ks_kernel, ntt_stream
+from aloha_tpu_torch.ops import ks_kernel, ntt_mxu, ntt_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +56,59 @@ def test_ntt_kernel_matches_plain(dev, inverse):
     torch.cuda.synchronize()
     assert ntt_stream.transform.launches == before + 1
     assert torch.equal(got, ntt_stream.transform_plain(x, CFG.moduli, roots, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_mxu_kernel_matches_plain(dev, inverse):
+    """q0, q1 and P in one launch (M=3) at N=8192; one polynomial of each
+    group holds words >= q, up to 2^63 - 1."""
+    roots = CFG.ipsi if inverse else CFG.psi
+    rng = np.random.default_rng(7)
+    x = _residues(rng, (4,), CFG.moduli, dev)
+    x[:, 3] = torch.from_numpy(rng.integers(0, (1 << 63) - 1, size=(3, N), dtype=np.int64)).to(dev)
+    before = ntt_mxu.transform.launches
+    got = ntt_mxu.transform(x, CFG.moduli, roots, inverse)
+    torch.cuda.synchronize()
+    assert ntt_mxu.transform.launches == before + 1
+    assert torch.equal(got, ntt_mxu.transform_plain(x, CFG.moduli, roots, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [0, 2])
+def test_ntt_mxu_chain_matches_plain(dev, m, inverse):
+    root = (CFG.ipsi if inverse else CFG.psi)[m]
+    x = _residues(np.random.default_rng(8 + m), (4,), CFG.moduli[m:m + 1], dev)[0]
+    before = ntt_mxu.chain.launches
+    got = ntt_mxu.chain(x, CFG.moduli[m], root, 3, inverse)
+    torch.cuda.synchronize()
+    assert ntt_mxu.chain.launches == before + 1
+    assert torch.equal(got, ntt_mxu.chain_plain(x, CFG.moduli[m], root, 3, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_mxu_kernel_at_n4096(dev, inverse):
+    q = CFG.moduli[1]
+    root = pow((CFG.ipsi if inverse else CFG.psi)[1], 2, q)
+    x = cv.from_u64(np.random.default_rng(9).integers(0, q, size=(1, 4, 4096), dtype=np.uint64),
+                    dev)
+    got = ntt_mxu.transform(x, (q,), (root,), inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ntt_mxu.transform_plain(x, (q,), (root,), inverse))
+
+
+def test_ntt_mxu_rejects_bad_operands(dev):
+    q, psi = CFG.moduli[0], CFG.psi[0]
+    x = torch.zeros((1, 2, N), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        ntt_mxu.transform(x.to(torch.int32), (q,), (psi,), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_mxu.transform(torch.zeros((1, N, 2), dtype=torch.int64, device=dev).transpose(1, 2),
+                          (q,), (psi,), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_mxu.chain(torch.zeros((N, 2), dtype=torch.int64, device=dev).t(), q, psi, 2, False)
+    with pytest.raises(ValueError, match="ring degree"):
+        ntt_mxu.transform(torch.zeros((1, 2, 2048), dtype=torch.int64, device=dev),
+                          (q,), (psi,), False)
 
 
 @pytest.mark.parametrize("step_exp", [None, pow(3, 5, 2 * N), 2 * N - 1])

@@ -2,6 +2,7 @@
 
 - `import aloha_tpu_torch` and every submodule leaves `jax` out of
   sys.modules (checked in a fresh interpreter);
+- in particular `aloha_tpu_torch.ops.ntt_mxu` and `aloha_tpu_torch.bench`;
 - the CUDA wrappers import and dispatch without nvcc; building without
   nvcc raises instead of falling back;
 - `python chip_smoke.py` on a host without CUDA exits nonzero and prints
@@ -23,7 +24,7 @@ import torch
 from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
-from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_stream
+from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_mxu, ntt_stream
 
 torch.set_num_threads(2)
 
@@ -43,13 +44,14 @@ def test_import_leaves_jax_out():
         "names = [m.name for m in pkgutil.walk_packages(aloha_tpu_torch.__path__,"
         " 'aloha_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
+        "assert {'aloha_tpu_torch.ops.ntt_mxu', 'aloha_tpu_torch.bench'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton')))\n"
     )
     res = _run(["-c", code], ROOT)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 8
+    assert int(count) >= 10
     assert loaded == "[]"
 
 
@@ -69,7 +71,7 @@ def test_library_is_named_by_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
-    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "modarith.cuh"}
+    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "modarith.cuh"}
 
 
 def test_dispatch_routes_by_device():
@@ -85,6 +87,10 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     x = torch.zeros((1, 2, 1024), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         ntt_stream.transform(x, CFG.moduli[:1], CFG.psi[:1], False)
+    with pytest.raises(ValueError):
+        ntt_mxu.transform(x, CFG.moduli[:1], CFG.psi[:1], False)
+    with pytest.raises(ValueError):
+        ntt_mxu.chain(x[0], CFG.moduli[0], CFG.psi[0], 2, False)
     with pytest.raises(ValueError):
         ks_kernel.ks_head(torch.zeros((2, 1, 8192), dtype=torch.int64, device="meta"),
                           None, CFG)
