@@ -5,12 +5,14 @@ tensor with entries below 2^60 (Hopper has 64-bit integer lanes, so the
 TPU's u32 (lo, hi) plane split is gone); a ciphertext is ``(a, b)``, each
 ``(..., L, N)`` in NTT-domain bit-reversed order, as in `aloha_tpu.he_np`.
 
-Layers (bottom-up): `rns_torch` modular arithmetic -> `ntt_torch`
-transforms and tables -> `ops/` kernel wrappers (CUDA C++ under `csrc/`,
-each with a plain PyTorch version beside it) -> `he_torch` ciphertext ops.
-`convert` carries state between the two packages.  Key generation,
-encryption and encoding stay host-side NumPy in `aloha_tpu` and are used
-from there.  Nothing here imports JAX.
+Layers (bottom-up): `config` and the NumPy golden model `ntt_np` ->
+`rns_torch` modular arithmetic -> `ntt_torch` transforms and tables ->
+`ops/` kernel wrappers (CUDA C++ under `csrc/`, each with a plain PyTorch
+version beside it) -> `keys` (key generation, encryption), `encoder`
+(host-side NumPy) and `he_torch` ciphertext ops -> `parallel/` (the
+coefficient-sharded NTT over `torch.distributed`).  `convert` carries
+state from the JAX package.  The port keeps its own copies of what it
+needs and imports neither JAX nor `aloha_tpu`.
 """
 
-from aloha_tpu.config import DEFAULT_CONFIG, HEConfig  # noqa: F401
+from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig  # noqa: F401

@@ -1,11 +1,12 @@
 """Build the CUDA kernels under `csrc/` at first use and load them with ctypes.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` compiles every `csrc/*.cu` into one shared library with a
-plain C interface (no PyTorch headers: a few seconds of build instead of
-minutes).  The library goes to `_build/` beside this file (listed in
-`.gitignore`), named by a hash of the sources, so an edit rebuilds and an
-unchanged tree reuses the last build.  Nothing here runs at import time.
+`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC`
+compiles each `csrc/*.cu` (all at once, one process per source) and one
+`nvcc -shared` links them into a shared library with a plain C interface
+(no PyTorch headers: seconds of build instead of minutes).  The library
+goes to `_build/` beside this file (listed in `.gitignore`), named by a
+hash of the sources, so an edit rebuilds and an unchanged tree reuses the
+last build.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -58,33 +59,39 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libaloha_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> list:
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [(p, *p.communicate()) for p in procs]
+    for p, out, err in outs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+    return [out + err for _, out, err in outs]
+
+
 def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernels unless a library of the current sources exists."""
+    """Compile the kernels unless a library of the current sources exists:
+    one nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC",
-        *(["-Xptxas", "-v"] if verbose else []),
-        "-o", tmp, *(str(p) for p in sorted(CSRC.glob("*.cu"))),
-    ]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        logs = _run_all([
+            [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             *(["-Xptxas", "-v"] if verbose else []), "-c", str(src), "-o", obj]
+            for src, obj in zip(srcs, objs)
+        ])
+        lib_tmp = os.path.join(tmp, out.name)
+        logs += _run_all([[nvcc, *arch, "-shared", "-o", lib_tmp, *objs]])
         if verbose:
-            print(res.stdout + res.stderr, file=sys.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("".join(logs), file=sys.stderr)
+        os.replace(lib_tmp, out)
     return out
 
 

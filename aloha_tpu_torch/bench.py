@@ -34,9 +34,9 @@ import sys
 import numpy as np
 import torch
 
-from aloha_tpu import ntt_np
-from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
+from aloha_tpu_torch import ntt_np
+from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
 
 TRIALS = 4

@@ -1,4 +1,4 @@
-"""State carried between `aloha_tpu` (NumPy arrays) and the port (int64 tensors).
+"""State carried between the JAX package (NumPy arrays) and the port (int64 tensors).
 
 The JAX package holds a 64-bit word as a uint64 array (`he_np`, `keys`) or
 as a pair of uint32 planes (`he_planes`, the kernels' layout); the port
@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aloha_tpu.config import HEConfig
+from aloha_tpu_torch import keys
+from aloha_tpu_torch.config import HEConfig
 
 
 def from_u64(arr, device) -> torch.Tensor:
@@ -43,15 +44,23 @@ def to_planes(t: torch.Tensor):
 
 
 def ct_from_np(ct, device):
-    """he_np.Ciphertext -> (a, b) tensors."""
+    """A ciphertext of the JAX package (`.a`, `.b` uint64 arrays) -> (a, b)
+    tensors."""
     return from_u64(ct.a, device), from_u64(ct.b, device)
 
 
 def ct_to_np(ct):
-    """(a, b) tensors -> he_np.Ciphertext."""
-    from aloha_tpu.he_np import Ciphertext
+    """(a, b) tensors -> (a, b) uint64 arrays on the host."""
+    return to_u64(ct[0]), to_u64(ct[1])
 
-    return Ciphertext(a=to_u64(ct[0]), b=to_u64(ct[1]))
+
+def sk_from_np(sk, device) -> keys.SecretKey:
+    """A secret key of the JAX package (`.coeff` int64, `.ntt` uint64
+    arrays) -> the port's `keys.SecretKey`."""
+    return keys.SecretKey(
+        coeff=torch.from_numpy(np.ascontiguousarray(sk.coeff, dtype=np.int64)).to(device),
+        ntt=from_u64(sk.ntt, device),
+    )
 
 
 def ksk_from_np(ksk, cfg: HEConfig, device) -> torch.Tensor:

@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernels ntt_stream._stream_body / _stream_body_multi
 // (aloha_tpu/ops/ntt_stream.py:630/662, launched at :721 and :814): the
-// single-modulus form is M = 1.
+// single-modulus form is M = 1.  With M = 1 and the caller's tables it also
+// replaces ntt_stream.ntt_planes_with_tables (:754, launched at :775), the
+// per-shard body of the coefficient-sharded NTT: the tables are then a
+// shard's compact slice of a larger ring's (ops/ntt_stream.py
+// transform_with_tables), read exactly as the whole ring's are.
 //
 // Shape: one CTA per (polynomial, modulus m); grid (nb, M).  The whole
 // polynomial (n u64, 64 KiB at n = 8192) sits in dynamic shared memory for

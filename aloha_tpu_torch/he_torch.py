@@ -20,9 +20,9 @@ import math
 
 import torch
 
-from aloha_tpu.config import DEFAULT_CONFIG, HEConfig
 from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch import rns_torch as rt
+from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
 from aloha_tpu_torch.ops import ks_kernel, ntt_stream
 
 
@@ -67,20 +67,10 @@ def mul_plain(ct, pt, cfg: HEConfig = DEFAULT_CONFIG):
             _per_limb(rt.mulmod, ct[1], pt.expand_as(ct[1]), cfg))
 
 
-def _transform(x, moduli, roots, inverse: bool):
-    """NTT/INTT of x (..., M, N), limb m under moduli[m]: one launch."""
-    M, n = x.shape[-2], x.shape[-1]
-    batch = x.shape[:-2]
-    y = ntt_stream.transform(
-        x.reshape(-1, M, n).transpose(0, 1).contiguous(), moduli, roots, inverse
-    )
-    return y.transpose(0, 1).reshape(batch + (M, n))
-
-
 def encode_post(pt_coeff, cfg: HEConfig = DEFAULT_CONFIG):
     """Per-limb forward NTT of a coefficient-domain plaintext (..., L, N)."""
     L = cfg.n_limbs
-    return _transform(pt_coeff, cfg.moduli[:L], cfg.psi[:L], False)
+    return ntt_stream.transform_limbs(pt_coeff, cfg.moduli[:L], cfg.psi[:L], False)
 
 
 def automorphism(x, step: int, q: int):
@@ -172,14 +162,14 @@ def rescale(ct, cfg: HEConfig = DEFAULT_CONFIG):
     moduli = cfg.moduli[: L - 1]
     a, b = ct
     # centred lift of the last limb of both parts: one INTT launch
-    last = _transform(
+    last = ntt_stream.transform_limbs(
         torch.stack([a[..., L - 1:, :], b[..., L - 1:, :]], dim=-3),
         (q_last,), (cfg.ipsi[L - 1],), True,
     )[..., 0, :]
     last = rt.addmod(last, torch.full_like(last, half), q_last)
     # correction NTTs of both parts across the remaining limbs: one launch
     # over the stacked (..., 2, L-1, N) group
-    corr = _transform(
+    corr = ntt_stream.transform_limbs(
         _scalar_per_limb(
             rt.submod,
             last[..., :, None, :].expand(last.shape[:-1] + (L - 1, last.shape[-1])),

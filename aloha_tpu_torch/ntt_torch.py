@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from aloha_tpu import ntt_np
+from aloha_tpu_torch import ntt_np
 from aloha_tpu_torch import rns_torch as rt
 
 
@@ -50,12 +50,49 @@ def tables(n: int, qs: tuple, roots: tuple, device: torch.device):
     )
 
 
-def ntt(a, q: int, psi: int):
-    """Forward negacyclic NTT over the last axis, canonical output.
-    Input entries < 4q (the CUDA kernel's Harvey window)."""
+@functools.lru_cache(maxsize=64)
+def shard_tables(n: int, q: int, root: int, D: int, d: int, inverse: bool,
+                 device: torch.device):
+    """Shard d's tables when a ring of n coefficients is block-sharded over
+    D devices (C = n/D coefficients each): (w, wshoup) int64 (C,) and the
+    logD cross-stage twiddles (Python ints).
+
+    The local stages of the global transform are a size-C transform whose
+    compact tables are one contiguous run of the global tables per stage:
+    forward local stage s reads w_d[2^s + k] = w[2^(logD+s) + d 2^s + k],
+    inverse local stage s reads w_d[C/2^(s+1) + k] = w[n/2^(s+1) + d C/2^(s+1) + k].
+    In a cross stage every element of a shard takes one twiddle: forward
+    stage s (s < logD) w[2^s + (d >> (logD - s))], inverse cross stage s2
+    (after the local ones) w[n/2^(logC+s2+1) + (d >> (s2+1))].  D = 1 gives
+    the whole ring's tables and no cross stage."""
+    if D < 1 or D & (D - 1) or n % D or not 0 <= d < D:
+        raise ValueError(f"shard {d} of {D}: D a power of two dividing n={n} required")
+    C = n // D
+    logD, logC = D.bit_length() - 1, C.bit_length() - 1
+    w, ws = twiddles_np(n, root, q)
+    idx = np.zeros(C, dtype=np.int64)
+    for s in range(logC):
+        if inverse:
+            span = C >> (s + 1)
+            idx[span:2 * span] = (n >> (s + 1)) + d * span + np.arange(span)
+        else:
+            idx[1 << s:2 << s] = (1 << (logD + s)) + (d << s) + np.arange(1 << s)
+    if inverse:
+        cross = tuple(int(w[(n >> (logC + s + 1)) + (d >> (s + 1))]) for s in range(logD))
+    else:
+        cross = tuple(int(w[(1 << s) + (d >> (logD - s))]) for s in range(logD))
+    return (
+        torch.from_numpy(w[idx].view(np.int64)).to(device),
+        torch.from_numpy(ws[idx].view(np.int64)).to(device),
+        cross,
+    )
+
+
+def ntt_with_tables(a, w, ws, q: int):
+    """Forward negacyclic NTT over the last axis (length C) with caller-
+    supplied compact tables w, ws (C,): stage s reads [2^s, 2^(s+1)).
+    Canonical output; input entries < 4q (the CUDA kernel's Harvey window)."""
     n = a.shape[-1]
-    w, ws, _ = tables(n, (q,), (psi,), a.device)
-    w, ws = w[0], ws[0]
     batch = a.shape[:-1]
     a = a % q
     t, m = n, 1
@@ -76,12 +113,11 @@ def ntt(a, q: int, psi: int):
     return a
 
 
-def intt(a, q: int, ipsi: int):
-    """Inverse negacyclic NTT over the last axis, halving per GS stage.
+def intt_with_tables(a, w, ws, q: int):
+    """Inverse negacyclic NTT over the last axis with caller-supplied compact
+    tables (stage s reads [C/2^(s+1), C/2^s)), halving per GS stage.
     Input entries < 2q."""
     n = a.shape[-1]
-    w, ws, _ = tables(n, (q,), (ipsi,), a.device)
-    w, ws = w[0], ws[0]
     batch = a.shape[:-1]
     a = rt.lazy_reduce(a, q)
     t, m = 1, n
@@ -101,6 +137,19 @@ def intt(a, q: int, ipsi: int):
         t *= 2
         m = h
     return a
+
+
+def ntt(a, q: int, psi: int):
+    """Forward negacyclic NTT over the last axis, canonical output.
+    Input entries < 4q."""
+    w, ws, _ = tables(a.shape[-1], (q,), (psi,), a.device)
+    return ntt_with_tables(a, w[0], ws[0], q)
+
+
+def intt(a, q: int, ipsi: int):
+    """Inverse negacyclic NTT over the last axis.  Input entries < 2q."""
+    w, ws, _ = tables(a.shape[-1], (q,), (ipsi,), a.device)
+    return intt_with_tables(a, w[0], ws[0], q)
 
 
 @functools.lru_cache(maxsize=64)

@@ -28,10 +28,9 @@ import math
 import numpy as np
 import torch
 
-from aloha_tpu import ntt_np
-from aloha_tpu.config import HEConfig
-from aloha_tpu_torch import _build, ntt_torch
+from aloha_tpu_torch import _build, ntt_np, ntt_torch
 from aloha_tpu_torch import rns_torch as rt
+from aloha_tpu_torch.config import HEConfig
 from aloha_tpu_torch.ops import dispatch
 
 

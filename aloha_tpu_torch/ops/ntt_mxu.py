@@ -53,8 +53,7 @@ import functools
 import numpy as np
 import torch
 
-from aloha_tpu import ntt_np
-from aloha_tpu_torch import _build
+from aloha_tpu_torch import _build, ntt_np
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.ops import dispatch
 

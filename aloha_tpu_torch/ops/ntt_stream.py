@@ -6,6 +6,13 @@ Replaces the TPU kernels `ntt_stream._stream_body` (single modulus, via
 Both become one kernel, `csrc/ntt.cu`, with the modulus on the grid: M = 1
 is the single-modulus form.  Output is canonical [0, q).
 
+The same kernel replaces `ntt_stream.ntt_planes_with_tables`
+(aloha_tpu/ops/ntt_stream.py:754, `pallas_call` at :775), the per-shard body
+of the coefficient-sharded NTT: `transform_with_tables` feeds it the
+caller's compact tables of a shard's slice of a larger ring
+(`ntt_torch.shard_tables`).  The TPU's per-element (logn, rows, 128) table
+planes are not carried over.
+
 Bound on the H100: integer issue and shared memory (13 stages of 64-bit
 Shoup butterflies on a polynomial held in shared memory), not HBM; one CTA
 per (polynomial, modulus) keeps every stage on chip.
@@ -13,10 +20,29 @@ per (polynomial, modulus) keeps every stage on chip.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from aloha_tpu_torch import _build, ntt_torch
 from aloha_tpu_torch.ops import dispatch
+
+
+def _launch(x, w, ws, q, inverse: bool, name: str):
+    """One launch of csrc/ntt.cu on x (M, nb, n), group m with tables
+    w[m], ws[m] (n,) under modulus q[m]: (output, whether it launched)."""
+    M, nb, n = x.shape
+    if n & (n - 1) or n > 16384:
+        raise ValueError(f"length {n}: a power of two up to 16384 required")
+    y = torch.empty_like(x)
+    if nb:
+        err = _build.lib().aloha_ntt(
+            x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+            ws.data_ptr(), q.data_ptr(), M, nb, n.bit_length() - 1,
+            int(inverse), dispatch.stream_of(x),
+        )
+        _build.check(err, name)
+    return y, bool(nb)
 
 
 def transform_plain(x, qs, roots, inverse: bool):
@@ -38,19 +64,52 @@ def transform(x, qs, roots, inverse: bool):
     if not dispatch.use_kernel(x):
         return transform_plain(x, qs, roots, inverse)
     dispatch.check(x, (M, nb, n), "x")
-    if n & (n - 1) or n > 16384:
-        raise ValueError(f"ring degree {n}: a power of two up to 16384 required")
     w, ws, q = ntt_torch.tables(n, qs, roots, x.device)
-    y = torch.empty_like(x)
-    if nb:
-        err = _build.lib().aloha_ntt(
-            x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(),
-            ws.data_ptr(), q.data_ptr(), M, nb, n.bit_length() - 1,
-            int(inverse), dispatch.stream_of(x),
-        )
-        _build.check(err, "ntt")
-        transform.launches += 1
+    y, launched = _launch(x, w, ws, q, inverse, "ntt")
+    transform.launches += launched
     return y
 
 
 transform.launches = 0
+
+
+def transform_limbs(x, moduli, roots, inverse: bool):
+    """NTT/INTT of x (..., M, N), limb m under moduli[m]: one launch."""
+    M, n = x.shape[-2], x.shape[-1]
+    batch = x.shape[:-2]
+    y = transform(
+        x.reshape(-1, M, n).transpose(0, 1).contiguous(), moduli, roots, inverse
+    )
+    return y.transpose(0, 1).reshape(batch + (M, n))
+
+
+@functools.lru_cache(maxsize=64)
+def _modulus(q: int, device: torch.device):
+    return torch.tensor([q], dtype=torch.int64, device=device)
+
+
+def transform_with_tables_plain(x, w, ws, q: int, inverse: bool):
+    """Plain PyTorch version: `ntt_torch`'s stage loop fed the same tables."""
+    fn = ntt_torch.intt_with_tables if inverse else ntt_torch.ntt_with_tables
+    return fn(x, w, ws, q)
+
+
+def transform_with_tables(x, w, ws, q: int, inverse: bool):
+    """Forward or inverse NTT of x (nb, C) int64 under q with caller-supplied
+    compact tables w, ws (C,) int64 (`ntt_torch.shard_tables`): a shard's
+    local stages of a larger ring, or the whole ring's transform.  Forward
+    input entries < 4q, inverse < 2q; canonical output.  CPU tensors take
+    the plain version, CUDA tensors the kernel."""
+    if not dispatch.use_kernel(x, w, ws):
+        return transform_with_tables_plain(x, w, ws, q, inverse)
+    nb, n = x.shape
+    dispatch.check(x, (nb, n), "x")
+    dispatch.check(w, (n,), "w")
+    dispatch.check(ws, (n,), "ws")
+    y, launched = _launch(x[None], w[None], ws[None], _modulus(q, x.device), inverse,
+                          "ntt_with_tables")
+    transform_with_tables.launches += launched
+    return y[0]
+
+
+transform_with_tables.launches = 0

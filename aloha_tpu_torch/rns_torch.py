@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from aloha_tpu.config import MOD_WIDTH, barrett_iq
+from aloha_tpu_torch.config import MOD_WIDTH, barrett_iq
 
 _B = 30
 _M = (1 << _B) - 1

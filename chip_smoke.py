@@ -6,28 +6,36 @@
 Phases, each printing its own line; any failure exits nonzero:
   1. device: requires CUDA (there is no CPU fallback); prints the card
      as `nvidia-smi --query-gpu=name,power.limit` gives it;
-  2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a) into
-     aloha_tpu_torch/_build/;
+  2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
+     per source, all at once) into aloha_tpu_torch/_build/;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
   4. serve: three encrypted matrix-vector requests, each a batch of 16
      ciphertexts through he_torch.matvec_bsgs (D=16 diagonals, g=4) and
-     rescale; decrypts within 0.15 of the cleartext product, ciphertext 0
-     of request 0 word-exact against aloha_tpu.he_np, and every kernel
-     launched by the requests;
+     rescale, with keys, encodings and encryptions made by the port
+     (aloha_tpu_torch.keys and .encoder); decrypts within 0.15 of the
+     cleartext product, ciphertext 0 of request 0 word-exact against the
+     port's plain path on CPU tensors, and every kernel launched by the
+     requests;
   5. bench: ntt, ntt_mxu and the chain (k=64) at the bench's own shapes
      and inputs against their plain versions (torch.equal); then
      aloha_tpu_torch.bench.run at N=8192, batch 256, the fused chain cut
      to k=64: each form's NTT/s, bit-exact against the ntt_np chain, with
-     ntt and both ntt_mxu wrappers launched.
+     ntt and both ntt_mxu wrappers launched;
+  6. shard: ntt_stream.transform_with_tables (the NTT kernel fed a shard's
+     tables) for D in {1, 2, 4, 8}, shards 0 and D-1, both directions, at
+     N=8192, nb=64, q0, against its plain version; then
+     parallel.ntt_sharded / intt_sharded at N=8192 through a real NCCL
+     process group of D ranks, D the largest power of two <= the visible
+     GPUs (one card: D=1, a world of one): forward equal to ntt_np.ntt on
+     the first two polynomials, round trip exact, the kernel launched.
 The line before the last is a JSON object of the kernels (launches summed
-over the serve and bench paths, and per path); the last line is
-{"ok": true, "device": {...}}.
+over the main paths, and per path; each kernel's bound from this run's
+shapes); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +45,9 @@ SEED = 2024
 B, D, G = 16, 16, 4  # ciphertexts per request, diagonals, baby steps
 REQUESTS = 3
 BENCH = dict(batch=256, chain_k=64)
+SHARD_NB = 64  # polynomials of the shard phase
+SHARD_DS = (1, 2, 4, 8)  # shard counts whose tables the kernel is held on
+SHARD_TIMEOUT_S = 300  # the spawned sharded ranks, when there are several cards
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
 
 
@@ -74,27 +85,119 @@ def phase_build():
 
 
 def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
-    """Median over `iters` single calls, each bracketed by CUDA events."""
+    """Mean time of one call over a run of `iters` calls launched back to
+    back between two CUDA events, after `warmup` calls.  A single call
+    between two events would also count the host's enqueue time, which is
+    longer than the device time of the small launches."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) * 1e3)
-    return statistics.median(times)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) * 1e3 / iters
 
 
-def check(results: dict, card: str, kernel: str, label: str, run, run_plain,
+# ---------------------------------------------------------------- bounds
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
+INT32_LANES = 132 * 64  # SMs x INT32 lanes each
+#: peak operations/s by kind; "int32" is set from the card's max SM clock
+PEAK = {"int8": 1.979e15}  # dense int8 tensor-core peak (one MAC = two operations)
+# 32-bit integer instructions of the kernels' arithmetic (csrc/modarith.cuh),
+# counted from the code: a 64-bit add, subtract, compare or select is 2, a
+# 64x64-bit low product 4, __umul64hi 8.  Barrett products are counted as
+# Shoup ones, which they exceed: the bound stays a lower bound.
+CT_OPS = 36  # forward butterfly: condsub, Shoup product, add, sub, twiddle index
+GS_OPS = 56  # inverse butterfly: addmod + halfmod, u + q - v, Shoup product, condsub, halfmod
+MULMOD_OPS = 24  # a Shoup product with its condsub
+ELEM_OPS = 6  # one add, subtract or condsub mod q
+
+
+def _transform_ops(n: int, inverse: bool) -> int:
+    """INT32 instructions of one length-n transform of csrc/modarith.cuh."""
+    logn = n.bit_length() - 1
+    return n // 2 * logn * (GS_OPS if inverse else CT_OPS) + n * ELEM_OPS * (1 if inverse else 2)
+
+
+def ntt_work(nb: int, M: int, n: int, inverse: bool):
+    """(bytes, operations, kind) of one csrc/ntt.cu launch: nb x M length-n
+    transforms, each word read and written once, each modulus's (w, wshoup)
+    tables read once."""
+    return nb * M * n * 16 + M * n * 16, nb * M * _transform_ops(n, inverse), "int32"
+
+
+def _ks_sizes():
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+
+    L, n = CFG.n_limbs, CFG.n
+    # forward and inverse (w, wshoup) of every modulus
+    return L, n, 2 * (L + 1) * n * 16
+
+
+def ks_head_work(nb: int):
+    """One ks_head launch: nb b-parts (L, N) in, (L+1, L, N) raised digits out."""
+    L, n, tables = _ks_sizes()
+    fwd, inv = _transform_ops(n, False), _transform_ops(n, True)
+    head = L * inv + L * (L + 1) * fwd + L * (L + 2) * n * ELEM_OPS
+    return nb * L * n * 8 + nb * (L + 1) * L * n * 8 + tables, nb * head, "int32"
+
+
+def ks_tail_work(nb_in: int, nb_out: int, K: int, shoup: bool):
+    """One ks_tail launch: nb_in raised digits and riders in, K keys (with
+    their Shoup companions when `shoup`), nb_out (a, b) pairs out."""
+    L, n, tables = _ks_sizes()
+    fwd, inv = _transform_ops(n, False), _transform_ops(n, True)
+    tail = (2 * (L + 1) * L * n * (MULMOD_OPS + ELEM_OPS) + 2 * inv + 2 * L * fwd
+            + 2 * L * n * (2 * ELEM_OPS + MULMOD_OPS) + (L + 2) * n * ELEM_OPS)
+    nbytes = ((L + 1) * nb_in * L * n * 8 + L * nb_in * n * 8
+              + K * 2 * L * (L + 1) * n * (16 if shoup else 8) + L * nb_out * 2 * n * 8 + tables)
+    return nbytes, nb_out * tail, "int32"
+
+
+def mxu_work(nb: int, M: int, k: int = 1):
+    """One csrc/ntt_mxu.cu launch: nb x M N=8192 polynomials in and out, k
+    chained transforms each, one set of digit tables per modulus.  A 4-step
+    transform's int8 MACs: 8 digit planes of the (R x R) row product over
+    K = 8R, then of the (128 x 128) lane product over K = 1024."""
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_mxu
+
+    n = CFG.n
+    R = n // 128
+    macs = 8 * R * 128 * 8 * R + 8 * R * 128 * 1024
+    # every modulus and direction has tables of the same sizes
+    tables = sum(a.nbytes for a in ntt_mxu.tables_np(n, CFG.moduli[0], CFG.psi[0], False))
+    return nb * M * n * 16 + M * tables, 2 * nb * M * k * macs, "int8"
+
+
+def bound(work):
+    """(µs, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over their peak."""
+    nbytes, ops, kind = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK[kind]
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_sm_clock_mhz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def check(results: dict, card: str, kernel: str, label: str, run, run_plain, work,
           warmup: int = 3, iters: int = 15):
-    """Fail unless run() is torch.equal to run_plain(); time both."""
+    """Fail unless run() is torch.equal to run_plain(); time both and give
+    the bound of `work` (bytes, operations, kind) beside them."""
     import torch
 
     got, want = run(), run_plain()
@@ -104,17 +207,18 @@ def check(results: dict, card: str, kernel: str, label: str, run, run_plain,
         fail(f"{kernel} {label}: kernel differs from plain (max_abs_err={err})")
     k_us = time_us(run, warmup, iters)
     p_us = time_us(run_plain, warmup, iters)
+    b_us, b_by = bound(work)
     print(f"kernel {kernel} {label}: equal=True kernel_us={k_us:.1f} "
-          f"plain_us={p_us:.1f} on {card}", flush=True)
-    results.setdefault(kernel, []).append((label, err, k_us, p_us))
+          f"plain_us={p_us:.1f} bound_us={b_us:.2f} ({b_by}) on {card}", flush=True)
+    results.setdefault(kernel, []).append((label, err, k_us, p_us, b_us, b_by))
 
 
 def phase_kernels(card: str, dev):
     import numpy as np
     import torch
 
-    from aloha_tpu.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
     from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
 
@@ -129,31 +233,32 @@ def phase_kernels(card: str, dev):
             dev,
         )
 
-    def case(kernel, label, run, run_plain):
-        check(results, card, kernel, label, run, run_plain)
+    def case(kernel, label, run, run_plain, work):
+        check(results, card, kernel, label, run, run_plain, work)
 
     # ntt: a multi-modulus case (M=3, nb=64), then rescale's shapes (B=16 x 2 parts)
     x3 = rand((64, n), mod)
     case("ntt", "fwd M=3 nb=64",
          lambda: ntt_stream.transform(x3, mod, CFG.psi, False),
-         lambda: ntt_stream.transform_plain(x3, mod, CFG.psi, False))
+         lambda: ntt_stream.transform_plain(x3, mod, CFG.psi, False), ntt_work(64, 3, n, False))
     case("ntt", "inv M=3 nb=64",
          lambda: ntt_stream.transform(x3, mod, CFG.ipsi, True),
-         lambda: ntt_stream.transform_plain(x3, mod, CFG.ipsi, True))
+         lambda: ntt_stream.transform_plain(x3, mod, CFG.ipsi, True), ntt_work(64, 3, n, True))
     x1 = rand((2 * B, n), mod[L - 1:L])
     case("ntt", f"inv M=1 nb={2 * B} (rescale)",
          lambda: ntt_stream.transform(x1, mod[L - 1:L], CFG.ipsi[L - 1:L], True),
-         lambda: ntt_stream.transform_plain(x1, mod[L - 1:L], CFG.ipsi[L - 1:L], True))
+         lambda: ntt_stream.transform_plain(x1, mod[L - 1:L], CFG.ipsi[L - 1:L], True),
+         ntt_work(2 * B, 1, n, True))
 
     # ks_head: hoisted (the request's baby steps) and with an automorphism
     b = rand((B, n), mod[:L])
     e = pow(3, 5, 2 * n)
     case("ks_head", f"hoisted nb={B}",
          lambda: ksk_ops.ks_head(b, None, CFG),
-         lambda: ksk_ops.ks_head_plain(b, None, CFG))
+         lambda: ksk_ops.ks_head_plain(b, None, CFG), ks_head_work(B))
     case("ks_head", f"aut nb={B}",
          lambda: ksk_ops.ks_head(b, e, CFG),
-         lambda: ksk_ops.ks_head_plain(b, e, CFG))
+         lambda: ksk_ops.ks_head_plain(b, e, CFG), ks_head_work(B))
 
     # ks_tail: raised digits from the head, random keys of the KSK layout
     nd = ksk_ops.ks_head(b, None, CFG)
@@ -172,18 +277,19 @@ def phase_kernels(card: str, dev):
     s3 = torch.stack([p[1] for p in prep])
     case("ks_tail", f"shared K=3 nb={B} (baby steps)",
          lambda: ksk_ops.ks_tail(nd, rider, k3, CFG, kshoup=s3, shared_inputs=True),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, k3, CFG, shared_inputs=True))
+         lambda: ksk_ops.ks_tail_plain(nd, rider, k3, CFG, shared_inputs=True),
+         ks_tail_work(B, 3 * B, 3, True))
     nd48 = ksk_ops.ks_head(rand((3 * B, n), mod[:L]), None, CFG)
     rider48 = rand((3 * B, n), mod[:L])
     case("ks_tail", f"batched K=3 nb={3 * B} (giant steps)",
          lambda: ksk_ops.ks_tail(nd48, rider48, k3, CFG, kshoup=s3),
-         lambda: ksk_ops.ks_tail_plain(nd48, rider48, k3, CFG))
+         lambda: ksk_ops.ks_tail_plain(nd48, rider48, k3, CFG), ks_tail_work(3 * B, 3 * B, 3, True))
     case("ks_tail", f"single nb={B} shoup",
          lambda: ksk_ops.ks_tail(nd, rider, prep[0][0], CFG, kshoup=prep[0][1]),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, prep[0][0], CFG))
+         lambda: ksk_ops.ks_tail_plain(nd, rider, prep[0][0], CFG), ks_tail_work(B, B, 1, True))
     case("ks_tail", f"single nb={B} barrett",
          lambda: ksk_ops.ks_tail(nd, rider, keys3[0], CFG),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, keys3[0], CFG))
+         lambda: ksk_ops.ks_tail_plain(nd, rider, keys3[0], CFG), ks_tail_work(B, B, 1, False))
 
     # ntt_mxu: each modulus alone, both directions; then the fused chain
     for m, name in enumerate(("q0", "q1", "P")):
@@ -192,23 +298,24 @@ def phase_kernels(card: str, dev):
             label = f"{'inv' if inv else 'fwd'} {name} nb=64"
             case("ntt_mxu", label,
                  lambda: ntt_mxu.transform(xm, mod[m:m + 1], roots[m:m + 1], inv),
-                 lambda: ntt_mxu.transform_plain(xm, mod[m:m + 1], roots[m:m + 1], inv))
+                 lambda: ntt_mxu.transform_plain(xm, mod[m:m + 1], roots[m:m + 1], inv),
+                 mxu_work(64, 1))
     for m, name in ((0, "q0"), (2, "P")):
         xc = rand((16, n), mod[m:m + 1])[0]
         for inv, root in ((False, CFG.psi[m]), (True, CFG.ipsi[m])):
             label = f"{'inv' if inv else 'fwd'} {name} k=3 nb=16"
             case("ntt_mxu_chain", label,
                  lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
-                 lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv))
+                 lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv), mxu_work(16, 1, 3))
     return results
 
 
 def phase_bench(card: str, dev, results: dict):
     import numpy as np
 
-    from aloha_tpu.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch import bench
     from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
 
     # each wrapper at the bench's own shapes and inputs, against its plain version
@@ -219,13 +326,14 @@ def phase_bench(card: str, dev, results: dict):
     x1 = x[None]
     check(results, card, "ntt", f"fwd q0 (1, {nb}, {n}) bench",
           lambda: ntt_stream.transform(x1, (q,), (psi,), False),
-          lambda: ntt_stream.transform_plain(x1, (q,), (psi,), False), 1, 3)
+          lambda: ntt_stream.transform_plain(x1, (q,), (psi,), False),
+          ntt_work(nb, 1, n, False), 1, 3)
     check(results, card, "ntt_mxu", f"fwd q0 (1, {nb}, {n}) bench",
           lambda: ntt_mxu.transform(x1, (q,), (psi,), False),
-          lambda: ntt_mxu.transform_plain(x1, (q,), (psi,), False), 1, 3)
+          lambda: ntt_mxu.transform_plain(x1, (q,), (psi,), False), mxu_work(nb, 1), 1, 3)
     check(results, card, "ntt_mxu_chain", f"fwd q0 k={k} nb={nb} bench",
           lambda: ntt_mxu.chain(x, q, psi, k, False),
-          lambda: ntt_mxu.chain_plain(x, q, psi, k, False), 0, 1)
+          lambda: ntt_mxu.chain_plain(x, q, psi, k, False), mxu_work(nb, 1, k), 0, 1)
 
     # the main path: counts start at 0 here
     counters = {"ntt": ntt_stream.transform, "ntt_mxu": ntt_mxu.transform,
@@ -253,49 +361,46 @@ def phase_serve(card: str, dev):
     import numpy as np
     import torch
 
-    from aloha_tpu import encoder, he_np, keys
-    from aloha_tpu.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import encoder, keys
     from aloha_tpu_torch import he_torch as ht
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
     from aloha_tpu_torch.ops import ntt_stream
 
     n, S = CFG.n, CFG.n // 2
     q0, q1 = CFG.moduli[0], CFG.moduli[1]
     nb_giant = (D + G - 1) // G
+    cpu = torch.device("cpu")
 
-    # set-up (host keys, encoded diagonals on the card, client encryption)
+    # set-up: keys on the card from a seeded generator, host encoding,
+    # diagonals and client encryption on the card
     t0 = time.perf_counter()
-    sk = keys.gen_secret(CFG, rng=np.random.default_rng(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    sk = keys.gen_secret(CFG, gen, dev)
     baby_steps = list(range(1, G))
     giant_steps = [G * i for i in range(1, nb_giant)]
-    ksk_np = {s: keys.gen_rotation_key(sk, s, CFG, rng=np.random.default_rng(SEED + s))
-              for s in baby_steps + giant_steps}
-    ksk = {s: cv.ksk_from_np(k, CFG, dev) for s, k in ksk_np.items()}
+    ksk = {s: keys.gen_rotation_key(sk, s, CFG, gen) for s in baby_steps + giant_steps}
     for s, k in ksk.items():  # one-time key preparation, as at key load
         ksk_ops.prepare_ksk(k, CFG, aut_exp=pow(3, s, 2 * n))
     rng = np.random.default_rng(SEED + 100)
     dvecs = [rng.uniform(-1, 1, size=S) for _ in range(D)]
     dcoeff = np.stack([encoder.encode(encoder.cleartext_from_slots(d + 0j), CFG)
                        for d in dvecs])
-    diags_np = [he_np.encode_post(c, CFG) for c in dcoeff]
     diags = ht.encode_post(cv.from_u64(dcoeff, dev), CFG)
-    if not np.array_equal(cv.to_u64(diags), np.stack(diags_np)):
-        fail("encode_post of the diagonals differs from he_np.encode_post")
     requests = []
     for r in range(REQUESTS):
-        zs, cts = [], []
+        zs, signed = [], []
         for i in range(B):
             z = rng.uniform(-1, 1, size=S) + 1j * rng.uniform(-1, 1, size=S)
             pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
-            signed = np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
-                              pt[0].astype(np.int64))
-            cts.append(keys.encrypt(signed, sk, CFG,
-                                    rng=np.random.default_rng(SEED + 1000 * r + i)))
+            signed.append(np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
+                                   pt[0].astype(np.int64)))
             zs.append(z)
-        requests.append((zs, np.stack([c.a for c in cts]), np.stack([c.b for c in cts])))
-    print(f"serve: set-up {time.perf_counter() - t0:.1f} s (host keygen, encode, "
-          f"encryption of {REQUESTS}x{B} ciphertexts)", flush=True)
+        A, Bp = keys.encrypt(torch.from_numpy(np.stack(signed)).to(dev), sk, CFG, gen)
+        requests.append((zs, cv.to_u64(A), cv.to_u64(Bp)))
+    print(f"serve: set-up {time.perf_counter() - t0:.1f} s (keygen and encryption of "
+          f"{REQUESTS}x{B} ciphertexts on the card, host encoding)", flush=True)
 
     # the main path: counts start at 0 here
     counters = {"ntt": ntt_stream.transform, "ks_head": ksk_ops.ks_head,
@@ -319,30 +424,108 @@ def phase_serve(card: str, dev):
         if count == 0:
             fail(f"kernel {name} was not launched by the main path")
 
-    # checks: decrypt error, word-exactness against the NumPy oracle
+    # checks: decrypt error on the card, word-exactness against the port's
+    # plain path on CPU tensors (held against he_np by the CPU tests)
     worst = 0.0
     for (zs, _, _), (oa, ob) in zip(requests, outs):
         if oa.shape != (B, 1, n) or ob.shape != (B, 1, n):
             fail(f"output shape {oa.shape}, expected {(B, 1, n)}")
+        m = keys.decrypt((cv.from_u64(oa, dev), cv.from_u64(ob, dev)), sk, CFG).cpu().numpy()
         for i, z in enumerate(zs):
-            m = keys.decrypt(he_np.Ciphertext(a=oa[i], b=ob[i]), sk, CFG)
-            res = np.where(m < 0, m + np.int64(q0), m).astype(np.uint64)
+            res = np.where(m[i] < 0, m[i] + np.int64(q0), m[i]).astype(np.uint64)
             got = encoder.decode(res[None, :], CFG, limb=0) * (q1 / encoder.DELTA)
             want = sum(d * np.roll(z, -k) for k, d in enumerate(dvecs))
             worst = max(worst, float(np.abs(got - want).max()))
     if not worst < ENVELOPE:
         fail(f"decrypt error {worst} >= {ENVELOPE}")
+    diags_cpu = ht.encode_post(cv.from_u64(dcoeff, cpu), CFG)
+    if not np.array_equal(cv.to_u64(diags), cv.to_u64(diags_cpu)):
+        fail("encode_post of the diagonals differs from the plain path on the CPU")
     _, A, Bp = requests[0]
-    ref = he_np.rescale(he_np.matvec_bsgs(
-        he_np.Ciphertext(a=A[0], b=Bp[0]), diags_np,
-        [ksk_np[s] for s in baby_steps], [ksk_np[s] for s in giant_steps], CFG, g=G,
+    t = time.perf_counter()
+    ref = ht.rescale(ht.matvec_bsgs(
+        (cv.from_u64(A[:1], cpu), cv.from_u64(Bp[:1], cpu)), list(diags_cpu),
+        [ksk[s].cpu() for s in baby_steps], [ksk[s].cpu() for s in giant_steps], CFG, g=G,
     ), CFG)
-    exact = np.array_equal(outs[0][0][0], ref.a) and np.array_equal(outs[0][1][0], ref.b)
-    if not exact:
-        fail("ciphertext 0 of request 0 differs from he_np.matvec_bsgs + rescale")
+    cpu_s = time.perf_counter() - t
+    if not (np.array_equal(outs[0][0][:1], cv.to_u64(ref[0]))
+            and np.array_equal(outs[0][1][:1], cv.to_u64(ref[1]))):
+        fail("ciphertext 0 of request 0 differs from the plain matvec_bsgs + rescale on the CPU")
     print(f"serve: max decrypt error {worst:.4f} < {ENVELOPE} over {REQUESTS * B} "
-          f"ciphertexts; ciphertext 0 word-exact against he_np", flush=True)
+          f"ciphertexts; ciphertext 0 word-exact against the plain path on CPU tensors "
+          f"(CPU reference: {cpu_s:.1f} s on the host)", flush=True)
     return launches
+
+
+def _spawn_sharded(D: int, nb: int) -> list:
+    """The dry run on D ranks, one per card, NCCL: each rank's result."""
+    import tempfile
+
+    import numpy as np
+
+    from aloha_tpu_torch.parallel import dryrun
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun.spawn(D, ["--device", "cuda", "--batch", str(nb), "--out", tmp], SHARD_TIMEOUT_S)
+        return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(D)]
+
+
+def phase_shard(card: str, dev, results: dict):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import ntt_torch
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_stream
+    from aloha_tpu_torch.parallel import dryrun
+
+    n, q, psi, ipsi = CFG.n, CFG.moduli[0], CFG.psi[0], CFG.ipsi[0]
+    nb = SHARD_NB
+    rng = np.random.default_rng(SEED + 3)
+    # the kernel with each shard's tables: the whole ring (D=1) and the
+    # first and last shard of D=2, 4, 8, against the plain stage loop
+    for Ds in SHARD_DS:
+        x = cv.from_u64(rng.integers(0, q, size=(nb, n // Ds), dtype=np.uint64), dev)
+        for d in sorted({0, Ds - 1}):
+            for inv, root in ((False, psi), (True, ipsi)):
+                w, ws, _ = ntt_torch.shard_tables(n, q, root, Ds, d, inv, dev)
+                check(results, card, "ntt_with_tables",
+                      f"{'inv' if inv else 'fwd'} D={Ds} d={d} nb={nb}",
+                      lambda: ntt_stream.transform_with_tables(x, w, ws, q, inv),
+                      lambda: ntt_stream.transform_with_tables_plain(x, w, ws, q, inv),
+                      ntt_work(nb, 1, n // Ds, inv), 1, 5)
+
+    # the main path: the sharded transform pair through a real process
+    # group, one rank per card; counts start at 0 here
+    Dp = 1 << (torch.cuda.device_count().bit_length() - 1)
+    ntt_stream.transform_with_tables.launches = 0
+    t0 = time.perf_counter()
+    if Dp == 1:
+        dryrun.init_world_of_one(dev)
+        try:
+            ranks = [dryrun.run(dev, n, nb, 1, check_rows=2)]
+        finally:
+            dist.destroy_process_group()
+        launches = ntt_stream.transform_with_tables.launches
+    else:
+        ranks = _spawn_sharded(Dp, nb)
+        launches = int(sum(int(r["launches"]) for r in ranks))
+    forward = all(bool(r["forward_ok"]) for r in ranks)
+    roundtrip = all(bool(r["roundtrip_ok"]) for r in ranks)
+    print(f"shard: ntt_sharded + intt_sharded at N={n}, nb={nb}, q0 over D={Dp} "
+          f"rank(s), nccl{' (a world of one)' if Dp == 1 else ''}: forward equals "
+          f"ntt_np.ntt on the first two polynomials: {forward}; round trip exact: "
+          f"{roundtrip}; {time.perf_counter() - t0:.2f} s, "
+          f"launches={{'ntt_with_tables': {launches}}} on {card}", flush=True)
+    if not forward:
+        fail("the sharded forward NTT differs from ntt_np.ntt")
+    if not roundtrip:
+        fail("the sharded round trip does not give the input back")
+    if launches == 0:
+        fail("kernel ntt_with_tables was not launched by the sharded path")
+    return {"ntt_with_tables": launches}
 
 
 def main():
@@ -350,16 +533,22 @@ def main():
     import torch
 
     try:
+        clock = max_sm_clock_mhz()
+        PEAK["int32"] = INT32_LANES * clock * 1e6
+        print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
+              f"INT32 {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
-        paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results)}
+        paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results),
+                 "shard": phase_shard(card, dev, results)}
     except SystemExit:
         raise
     except Exception:
         traceback.print_exc()
         fail("a phase raised")
-    from aloha_tpu.config import DEFAULT_CONFIG as CFG
+
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 
     nb, n, k = BENCH["batch"], CFG.n, BENCH["chain_k"]
     meta = {
@@ -373,16 +562,20 @@ def main():
                     None, f"fwd q0 (1, {nb}, {n}) bench"),
         "ntt_mxu_chain": ("aloha_tpu_torch/csrc/ntt_mxu.cu", "aloha_tpu/ops/ntt_mxu.py:860",
                           "aloha_tpu/ops/ntt_mxu.py:742", f"fwd q0 k={k} nb={nb} bench"),
+        "ntt_with_tables": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:775",
+                            None, f"fwd D=1 d=0 nb={SHARD_NB}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():
         rows = results[name]
-        _, _, k_us, p_us = next(r for r in rows if r[0] == main_case)
+        _, _, k_us, p_us, b_us, b_by = next(r for r in rows if r[0] == main_case)
         by_path = {p: c[name] for p, c in paths.items() if name in c}
         entry = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "max_abs_err": max(r[1] for r in rows),
-                 "ms": k_us / 1e3, "plain_ms": p_us / 1e3, "shape": main_case}
+                 "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
+                 "bound_ms": b_us / 1e3, "bound_by": b_by,
+                 "library_ms": None, "shape": main_case}
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)

@@ -17,6 +17,7 @@ from aloha_tpu import he_np, keys
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
+from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch.ops import ks_kernel, ntt_mxu, ntt_stream
 
 pytestmark = pytest.mark.cuda
@@ -109,6 +110,27 @@ def test_ntt_mxu_rejects_bad_operands(dev):
     with pytest.raises(ValueError, match="ring degree"):
         ntt_mxu.transform(torch.zeros((1, 2, 2048), dtype=torch.int64, device=dev),
                           (q,), (psi,), False)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+def test_ntt_with_tables_kernel_matches_plain(dev, D, inverse):
+    """The NTT kernel fed each shard's tables (every d) at N=8192 under q0;
+    one row holds words at the top of the input window (< 4q forward,
+    < 2q inverse)."""
+    q = CFG.moduli[0]
+    root = (CFG.ipsi if inverse else CFG.psi)[0]
+    rng = np.random.default_rng(10 + D)
+    x = rng.integers(0, q, size=(4, N // D), dtype=np.uint64)
+    x[3] += np.uint64(q) * rng.integers(1, 2 if inverse else 4, size=N // D, dtype=np.uint64)
+    x = cv.from_u64(x, dev)
+    for d in range(D):
+        w, ws, _ = ntt_torch.shard_tables(N, q, root, D, d, inverse, dev)
+        before = ntt_stream.transform_with_tables.launches
+        got = ntt_stream.transform_with_tables(x, w, ws, q, inverse)
+        torch.cuda.synchronize()
+        assert ntt_stream.transform_with_tables.launches == before + 1
+        assert torch.equal(got, ntt_stream.transform_with_tables_plain(x, w, ws, q, inverse))
 
 
 @pytest.mark.parametrize("step_exp", [None, pow(3, 5, 2 * N), 2 * N - 1])

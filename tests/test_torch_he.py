@@ -175,7 +175,7 @@ def test_encrypted_matvec_decrypts_within_envelope(data):
     out = ht.rescale(ht.matvec_bsgs(
         cv.ct_from_np(ct, CPU), list(diags), [cv.ksk_from_np(ksks[1], CFG, CPU)],
         [cv.ksk_from_np(ksks[2], CFG, CPU)], CFG, g=2), CFG)
-    m = keys.decrypt(cv.ct_to_np(out), sk, CFG)
+    m = keys.decrypt(he_np.Ciphertext(*cv.ct_to_np(out)), sk, CFG)
     res = np.where(m < 0, m + np.int64(q0), m).astype(np.uint64)
     got = encoder.decode(res[None, :], CFG, limb=0) * (CFG.moduli[1] / encoder.DELTA)
     want = sum(d * np.roll(z, -k) for k, d in enumerate(dvecs))

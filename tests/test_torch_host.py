@@ -1,0 +1,183 @@
+"""The port's host layer against the JAX package's, word for word.
+
+- `aloha_tpu_torch.config` keeps `aloha_tpu.config`'s fields and constants;
+- `aloha_tpu_torch.ntt_np` equals `aloha_tpu.ntt_np` at n = 1024 and 8192;
+- `keys`' deterministic cores equal `aloha_tpu.keys` on the same draws: the
+  port draws from a `torch.Generator` and the JAX functions are handed the
+  same numbers through `Replay`, in the order they ask for them;
+- `keys.decrypt` of a ciphertext of the JAX package is word-exact, with its
+  secret carried across by `convert.sk_from_np`;
+- a rotation key made by the port rotates: `he_torch.rotate`, then decrypt,
+  gives the rotated message within 0.15;
+- `encoder` equals `aloha_tpu.encoder`.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from aloha_tpu import config as jax_config
+from aloha_tpu import encoder as jax_encoder
+from aloha_tpu import keys as jax_keys
+from aloha_tpu import ntt_np as jax_ntt_np
+from aloha_tpu_torch import config, encoder, keys, ntt_np
+from aloha_tpu_torch import convert as cv
+from aloha_tpu_torch import he_torch as ht
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+CFG, JCFG = config.DEFAULT_CONFIG, jax_config.DEFAULT_CONFIG
+N = CFG.n
+
+
+class Replay:
+    """Stands in for the numpy Generator the JAX key functions take: hands
+    back the given arrays one call at a time, checking each call's range."""
+
+    def __init__(self, draws):
+        self.draws = [np.asarray(d) for d in draws]
+
+    def _next(self, size):
+        d = self.draws.pop(0)
+        assert d.shape == (size,)
+        return d
+
+    def integers(self, low, high, size=None, dtype=np.int64):
+        d = self._next(size)
+        assert ((d >= low) & (d < high)).all()
+        return d.astype(dtype)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        assert (loc, scale) == (0.0, keys.SIGMA)
+        return self._next(size).astype(np.float64)
+
+
+def test_config_equals_the_jax_package():
+    for f in dataclasses.fields(jax_config.HEConfig):
+        assert getattr(CFG, f.name) == getattr(JCFG, f.name), f.name
+    assert (CFG.logn, CFG.n_limbs, CFG.special_prime, CFG.iq) == (
+        JCFG.logn, JCFG.n_limbs, JCFG.special_prime, JCFG.iq)
+    assert [CFG.pinv_mod(m) for m in range(2)] == list(jax_config.PINV_MOD_Q)
+    for name in ("N_DEFAULT", "Q0", "Q1", "SP", "MODULI_DEFAULT", "PSI_DEFAULT",
+                 "IPSI_DEFAULT", "MOD_WIDTH"):
+        assert getattr(config, name) == getattr(jax_config, name), name
+    for q in CFG.moduli:
+        assert config.barrett_iq(q) == jax_config.barrett_iq(q)
+        assert config.shoup(q - 5, q) == jax_config.shoup(q - 5, q)
+    with pytest.raises(ValueError):
+        config.barrett_iq(1 << 40)
+    with pytest.raises(ValueError):
+        config.HEConfig(n=1000)
+    with pytest.raises(ValueError):
+        config.HEConfig(psi=(2,) + CFG.psi[1:], ipsi=(pow(2, -1, CFG.moduli[0]),) + CFG.ipsi[1:])
+    with pytest.raises(ValueError):
+        config.HEConfig(moduli=(3 * 2**58,) + CFG.moduli[1:])
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_ntt_np_equals_the_jax_package(n):
+    k = N // n
+    rng = np.random.default_rng(n)
+    for m, q in enumerate(CFG.moduli):
+        psi, ipsi = pow(CFG.psi[m], k, q), pow(CFG.ipsi[m], k, q)
+        x = rng.integers(0, q, size=(2, n), dtype=np.uint64)
+        y = ntt_np.ntt(x, q, psi)
+        assert np.array_equal(y, jax_ntt_np.ntt(x, q, psi))
+        assert np.array_equal(ntt_np.intt(y, q, ipsi), jax_ntt_np.intt(y, q, ipsi))
+        assert np.array_equal(ntt_np.intt(y, q, ipsi), x)
+        assert np.array_equal(ntt_np.psi_powers_bitrev(n, psi, q),
+                              jax_ntt_np.psi_powers_bitrev(n, psi, q))
+    assert np.array_equal(ntt_np.bitrev_permutation(n), jax_ntt_np.bitrev_permutation(n))
+    for e in (pow(3, 5, 2 * n), 2 * n - 1):
+        assert np.array_equal(ntt_np.ntt_aut_perm(n, e), jax_ntt_np.ntt_aut_perm(n, e))
+
+
+@pytest.fixture(scope="module")
+def secret():
+    """The port's secret from its draws, and the JAX package's from the same."""
+    coeff = keys.draw_secret(CFG, torch.Generator().manual_seed(1))
+    return keys.secret_key(coeff, CFG), jax_keys.gen_secret(JCFG, rng=Replay([coeff.numpy()]))
+
+
+def test_secret_key_core_and_carry_across(secret):
+    sk, jsk = secret
+    assert set(np.unique(sk.coeff.numpy())) <= {-1, 0, 1}
+    assert np.array_equal(sk.coeff.numpy(), jsk.coeff)
+    assert np.array_equal(cv.to_u64(sk.ntt), jsk.ntt)
+    carried = cv.sk_from_np(jsk, CPU)
+    assert torch.equal(carried.coeff, sk.coeff) and torch.equal(carried.ntt, sk.ntt)
+    assert torch.equal(keys.gen_secret(CFG, torch.Generator().manual_seed(1), CPU).ntt, sk.ntt)
+
+
+def test_rotation_key_core_equals_the_jax_package(secret):
+    sk, jsk = secret
+    step = 3
+    chunks, noise = keys.draw_ksk(CFG, torch.Generator().manual_seed(2))
+    assert chunks.shape == (CFG.n_limbs, keys.uniform_chunks(CFG), N)
+    assert bool((chunks >= 0).all())
+    got = keys.ksk_from_draws(keys.galois_secret(sk, pow(3, step, 2 * N), CFG), sk,
+                              chunks, noise, CFG)
+    draws = []
+    for j in range(CFG.n_limbs):  # the JAX order: the uniform chunks, then the error
+        draws += [c.numpy().view(np.uint64) for c in chunks[j]] + [noise[j].numpy()]
+    want = jax_keys.gen_rotation_key(jsk, step, JCFG, rng=Replay(draws))
+    assert np.array_equal(cv.to_u64(got), want)
+    wrapped = keys.gen_rotation_key(sk, step, CFG, torch.Generator().manual_seed(2))
+    assert torch.equal(wrapped, got)
+
+
+def test_encrypt_core_equals_the_jax_package(secret):
+    sk, jsk = secret
+    m = np.random.default_rng(3).integers(-(1 << 40), 1 << 40, size=(2, N))
+    e, b = keys.draw_encryption(CFG, torch.Generator().manual_seed(4), (2,))
+    a, b_out = keys.encrypt_with(torch.from_numpy(m), sk, e, b, CFG)
+    assert b_out is b
+    for i in range(2):
+        want = jax_keys.encrypt(m[i], jsk, JCFG, rng=Replay([e[i].numpy(), *b[i].numpy()]))
+        assert np.array_equal(cv.to_u64(a[i]), want.a)
+        assert np.array_equal(cv.to_u64(b[i]), want.b)
+
+
+@pytest.mark.parametrize("limb", [0, 1])
+def test_decrypt_of_a_jax_ciphertext_is_word_exact(secret, limb):
+    _, jsk = secret
+    m = np.random.default_rng(5).integers(-(1 << 40), 1 << 40, size=N)
+    jct = jax_keys.encrypt(m, jsk, JCFG, rng=np.random.default_rng(6))
+    got = keys.decrypt(cv.ct_from_np(jct, CPU), cv.sk_from_np(jsk, CPU), CFG, limb=limb)
+    assert np.array_equal(got.numpy(), jax_keys.decrypt(jct, jsk, JCFG, limb=limb))
+
+
+def test_port_rotation_key_rotates(secret):
+    sk, _ = secret
+    gen = torch.Generator().manual_seed(7)
+    z = np.random.default_rng(8).uniform(-1, 1, N // 2) + 0.5j
+    pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
+    q0 = CFG.moduli[0]
+    signed = np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0), pt[0].astype(np.int64))
+    ct = keys.encrypt(torch.from_numpy(signed), sk, CFG, gen)
+    rot = ht.rotate(ct, 2, keys.gen_rotation_key(sk, 2, CFG, gen), CFG)
+    m = keys.decrypt(rot, sk, CFG).numpy()
+    got = encoder.decode(np.where(m < 0, m + np.int64(q0), m).astype(np.uint64), CFG)
+    assert np.abs(got - np.roll(z, -2)).max() < 0.15
+
+
+def test_encoder_equals_the_jax_package():
+    rng = np.random.default_rng(9)
+    z = rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
+    clear = encoder.cleartext_from_slots(z)
+    assert np.array_equal(clear, jax_encoder.cleartext_from_slots(z))
+    assert np.array_equal(encoder.slots_from_cleartext(clear), jax_encoder.slots_from_cleartext(clear))
+    pt = encoder.encode(clear, CFG)
+    assert np.array_equal(pt, jax_encoder.encode(clear, JCFG))
+    for limb in (0, 1):
+        assert np.array_equal(encoder.decode(pt, CFG, limb=limb),
+                              jax_encoder.decode(pt, JCFG, limb=limb))
+    assert np.abs(encoder.decode(pt, CFG) - z).max() < 1e-6
+    assert encoder.DELTA == jax_encoder.DELTA
+    with pytest.raises(ValueError):
+        encoder.slots_from_cleartext(np.zeros(3))
+    with pytest.raises(ValueError):
+        encoder.encode(np.zeros(N - 2), CFG)

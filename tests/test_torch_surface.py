@@ -1,8 +1,8 @@
 """The port's surface: no JAX, no CPU fallback on the card path, state conversion.
 
-- `import aloha_tpu_torch` and every submodule leaves `jax` out of
-  sys.modules (checked in a fresh interpreter);
-- in particular `aloha_tpu_torch.ops.ntt_mxu` and `aloha_tpu_torch.bench`;
+- `import aloha_tpu_torch` and every submodule works with `jax` and
+  `aloha_tpu` blocked (checked in a fresh interpreter), and no module of
+  the port nor `chip_smoke.py` imports either (checked with `ast`);
 - the CUDA wrappers import and dispatch without nvcc; building without
   nvcc raises instead of falling back;
 - `python chip_smoke.py` on a host without CUDA exits nonzero and prints
@@ -10,6 +10,7 @@
 - convert round-trips u64 arrays, (lo, hi) planes and tensors.
 """
 
+import ast
 import json
 import os
 import pathlib
@@ -38,21 +39,43 @@ def _run(args, cwd, timeout=300):
                           capture_output=True, text=True, timeout=timeout)
 
 
+BLOCKED = ("jax", "jaxlib", "aloha_tpu")
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
 def test_import_leaves_jax_out():
+    """Every module of the port imports with jax and aloha_tpu blocked (an
+    entry of None in sys.modules makes their import raise), and neither
+    they nor chip_smoke.py name either package in an import statement."""
     code = (
-        "import importlib, pkgutil, sys, aloha_tpu_torch\n"
+        "import importlib, pkgutil, sys\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        "import aloha_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(aloha_tpu_torch.__path__,"
         " 'aloha_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "assert {'aloha_tpu_torch.ops.ntt_mxu', 'aloha_tpu_torch.bench'} <= set(names)\n"
+        "assert {'aloha_tpu_torch.ops.ntt_mxu', 'aloha_tpu_torch.bench', 'aloha_tpu_torch.keys',"
+        " 'aloha_tpu_torch.parallel.dryrun'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'triton')))\n"
+        " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
     res = _run(["-c", code], ROOT)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 10
+    assert int(count) >= 16
     assert loaded == "[]"
+    files = sorted((ROOT / "aloha_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        roots = set(_imported_roots(ast.parse(f.read_text())))
+        assert not roots & set(BLOCKED), (f, roots & set(BLOCKED))
+    assert "aloha_tpu_torch" in set(_imported_roots(ast.parse((ROOT / "chip_smoke.py").read_text())))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -150,8 +173,8 @@ def test_convert_ciphertexts_and_keys():
     L, n = CFG.n_limbs, CFG.n
     ct = he_np.Ciphertext(a=rng.integers(0, CFG.moduli[0], (L, n), dtype=np.uint64),
                           b=rng.integers(0, CFG.moduli[0], (L, n), dtype=np.uint64))
-    back = cv.ct_to_np(cv.ct_from_np(ct, CPU))
-    assert np.array_equal(back.a, ct.a) and np.array_equal(back.b, ct.b)
+    back_a, back_b = cv.ct_to_np(cv.ct_from_np(ct, CPU))
+    assert np.array_equal(back_a, ct.a) and np.array_equal(back_b, ct.b)
     flat = rng.integers(0, CFG.moduli[0], 2 * L * (L + 1) * n, dtype=np.uint64)
     k = cv.ksk_from_np(flat, CFG, CPU)
     assert k.shape == (2 * L * (L + 1), n)
