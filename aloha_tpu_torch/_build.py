@@ -26,10 +26,12 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint64
 
 #: C entry points and their argument types: (device, pointers..., ints..., stream).
 SIGNATURES = {
     "aloha_ntt": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "aloha_ntt_grid": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_ks_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
     "aloha_ntt_mxu": [_I] + [_P] * 9 + [_I] * 5 + [_P],

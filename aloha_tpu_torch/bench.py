@@ -2,13 +2,16 @@
 
     python -m aloha_tpu_torch.bench
 
-Times three forms of the forward transform at the JAX bench's sizes
+Times four forms of the forward transform at the JAX bench's sizes
 (bench.py:212-633): N=8192 under the first modulus q0 with its root psi0,
 data from np.random.default_rng(0).  Each form is a data-dependent chain
 bracketed by CUDA events, best of 4 timed runs after a warm-up:
 
   stream     `ops.ntt_stream.transform` (csrc/ntt.cu), batch 1024, 64
              chained launches;
+  grid       `ops.ntt_pallas.ntt` (csrc/ntt_grid.cu), batch 1024, 64
+             chained launches (the JAX bench's `pallas` form,
+             bench.py:274-276);
   mxu        `ops.ntt_mxu.transform` (csrc/ntt_mxu.cu, k = 1), batch 256,
              192 chained launches;
   mxu_chain  one `ops.ntt_mxu.chain` launch (k transforms in the kernel),
@@ -37,10 +40,10 @@ import torch
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import ntt_np
 from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
-from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
+from aloha_tpu_torch.ops import ntt_mxu, ntt_pallas, ntt_stream
 
 TRIALS = 4
-ITERS = 64  # chained launches of the stream form
+ITERS = 64  # chained launches of the stream and grid forms
 MXU_BATCH = 256  # polynomials of the two tensor-core forms
 MXU_ITERS = 192  # chained launches of the mxu form
 
@@ -73,7 +76,7 @@ def _best_rate(step, v0, work: int):
 
 def run(batch: int = 1024, chain_k: int = 1024,
         card_line: str | None = None) -> list[dict]:
-    """Measure the three forms on cuda:0; one metric record per form."""
+    """Measure the four forms on cuda:0; one metric record per form."""
     if not torch.cuda.is_available():
         raise RuntimeError("the NTT bench needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -98,6 +101,11 @@ def run(batch: int = 1024, chain_k: int = 1024,
             v = ntt_stream.transform(v, (q,), (psi,), False)
         return v
 
+    def grid(v):
+        for _ in range(ITERS):
+            v = ntt_pallas.ntt(v, q, psi)
+        return v
+
     def mxu(v):
         for _ in range(MXU_ITERS):
             v = ntt_mxu.transform(v, (q,), (psi,), False)
@@ -108,6 +116,7 @@ def run(batch: int = 1024, chain_k: int = 1024,
 
     forms = [
         ("stream", stream, cv.from_u64(x[None, :batch], dev), batch, ITERS),
+        ("grid", grid, cv.from_u64(x[:batch], dev), batch, ITERS),
         ("mxu", mxu, cv.from_u64(x[None, :MXU_BATCH], dev), MXU_BATCH, MXU_ITERS),
         ("mxu_chain", mxu_chain, cv.from_u64(x[:MXU_BATCH], dev), MXU_BATCH, chain_k),
     ]

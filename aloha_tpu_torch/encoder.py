@@ -3,7 +3,9 @@
 The port's own copy of `aloha_tpu/encoder.py`: the float inverse canonical
 embedding in float64 NumPy, then round-to-nearest, which reproduces the
 reference's fixed-point pipeline (reference: src/encoder/) to ~1e-6
-relative.  The device encoder (the port of `encoder_jax`) is a later slice.
+relative.  The device encoder, the port of `encoder_jax` that reproduces
+the fixed-point pipeline word for word, is `encoder_torch` (on the card
+through `he_torch.encode`).
 
   * a cleartext image holds n/2 complex slots interleaved:
     z_k = image[2k] + i*image[2k+1];
@@ -80,7 +82,15 @@ def decode(pt_coeff: np.ndarray, cfg: HEConfig = DEFAULT_CONFIG, limb: int = 0) 
     n = cfg.n
     q = cfg.moduli[limb]
     m = np.asarray(pt_coeff, dtype=np.uint64).reshape(-1, n)[limb if pt_coeff.ndim > 1 else 0]
-    mc = np.where(m > q // 2, m.astype(np.float64) - float(q), m.astype(np.float64))
+    return decode_coeffs(np.where(m > q // 2, m.astype(np.float64) - float(q), m.astype(np.float64)),
+                         cfg)
+
+
+def decode_coeffs(mc: np.ndarray, cfg: HEConfig = DEFAULT_CONFIG) -> np.ndarray:
+    """Signed coefficients (..., N) as float64 -> complex slots (..., N/2)
+    at the scale Delta: for a message whose integers exceed one limb, such
+    as a product at Delta^2 recombined over the limbs."""
+    n = cfg.n
     i = np.arange(n)
-    v = n * np.fft.ifft(mc * np.exp(1j * np.pi * i / n))
-    return v[_slot_positions(n)] / DELTA
+    v = n * np.fft.ifft(np.asarray(mc, dtype=np.float64) * np.exp(1j * np.pi * i / n))
+    return v[..., _slot_positions(n)] / DELTA

@@ -9,9 +9,21 @@ through `ops/` (CUDA kernels on the card, plain PyTorch on the CPU), and
 the elementwise ops and gathers are plain PyTorch, as they were XLA
 outside the Pallas kernels.
 
-Words equal `aloha_tpu.he_np`'s: rotate/galois/conjugate match
-he_np.rotate; the hoisted and batched forms and matvec_bsgs match
-he_np.rotate_hoisted / he_np.matvec_bsgs.
+Which JAX function each op ports:
+- `he_planes` (fused launches): hom_add, hom_sub, add_plain, mul_plain,
+  encode_post (one multi-modulus launch of csrc/ntt.cu), galois, rotate,
+  conjugate (the fused ks_head/ks_tail pair), the hoisted and batched
+  rotations, matvec_bsgs, ct_mul, relinearize (the key-switch pair with
+  e = 1 and a zero rider, he_planes.py:558-565) and rescale;
+- `he_jax` (one grid-kernel launch per transform, ops/ntt_pallas):
+  encode (he_jax.encode, he_jax.py:94-103, on the fixed-point device
+  encoder `encoder_torch`) and rotate_per_transform (he_jax.rotate /
+  _rotate_exp, he_jax.py:106-208).
+
+Words equal `aloha_tpu.he_np`'s: rotate/galois/conjugate and
+rotate_per_transform match he_np.rotate; the hoisted and batched forms and
+matvec_bsgs match he_np.rotate_hoisted / he_np.matvec_bsgs; ct_mul,
+relinearize and rescale match he_np's.
 """
 
 from __future__ import annotations
@@ -20,10 +32,10 @@ import math
 
 import torch
 
-from aloha_tpu_torch import ntt_torch
+from aloha_tpu_torch import encoder_torch, ntt_torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
-from aloha_tpu_torch.ops import ks_kernel, ntt_stream
+from aloha_tpu_torch.ops import ks_kernel, ntt_pallas, ntt_stream
 
 
 def _per_limb(op, x, y, cfg: HEConfig):
@@ -73,6 +85,16 @@ def encode_post(pt_coeff, cfg: HEConfig = DEFAULT_CONFIG):
     return ntt_stream.transform_limbs(pt_coeff, cfg.moduli[:L], cfg.psi[:L], False)
 
 
+def encode(cleartext, cfg: HEConfig = DEFAULT_CONFIG):
+    """(..., N) float64 interleaved re/im cleartexts -> (..., L, N) NTT-domain
+    plaintexts on the cleartext's device: the fixed-point encoder, then one
+    grid-kernel transform per limb (he_jax.encode_post).  Words equal
+    `encode_post` of the same coefficients."""
+    pt = encoder_torch.encode(cleartext, cfg)
+    return torch.stack([ntt_pallas.ntt(pt[..., m, :], cfg.moduli[m], cfg.psi[m])
+                        for m in range(cfg.n_limbs)], dim=-2)
+
+
 def automorphism(x, step: int, q: int):
     """X -> X^step in the coefficient domain, RTL sign rule (q - x)."""
     return ntt_torch.automorphism(x, step, q)
@@ -91,6 +113,77 @@ def rotate(ct, step: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
 def conjugate(ct, cjk, cfg: HEConfig = DEFAULT_CONFIG):
     """Slot conjugation: X -> X^(2N-1) + key-switch."""
     return galois(ct, 2 * cfg.n - 1, cjk, cfg)
+
+
+def rotate_per_transform(ct, step: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
+    """Slot rotation by `step` with one grid-kernel launch per transform:
+    the port of he_jax.rotate / he_jax._rotate_exp (he_jax.py:106-208),
+    step for step.  At L = 2 it is 8 launches: L INTTs of the stacked (b, a)
+    pairs, L+1 NTTs of the raised digits, one INTT under P, L correction
+    NTTs.  Words equal `rotate` (the fused pair) and he_np.rotate."""
+    a, b = ct
+    moduli, L, n = cfg.moduli, cfg.n_limbs, cfg.n
+    e = pow(3, step, 2 * n)
+    sp = cfg.special_prime
+    half = (sp - 1) // 2
+
+    # 1. digits d_j = aut(INTT(b_qj)), and aut(a) beside them
+    digits, a_aut = [], []
+    for m in range(L):
+        pair = ntt_pallas.intt(torch.stack([b[..., m, :], a[..., m, :]], dim=-2),
+                               moduli[m], cfg.ipsi[m])
+        digits.append(ntt_torch.automorphism(pair[..., 0, :], e, moduli[m]))
+        a_aut.append(ntt_torch.automorphism(pair[..., 1, :], e, moduli[m]))
+
+    # 2. raise the digits to every modulus, one NTT per modulus
+    nd = [[None] * (L + 1) for _ in range(L)]
+    for m in range(L + 1):
+        polys = [
+            d if m == j
+            else rt.lazy_reduce(d, moduli[m]) if moduli[m] > moduli[j]
+            else rt.modred(d, moduli[m])
+            for j, d in enumerate(digits)
+        ]
+        if m < L:
+            polys.append(a_aut[m])
+        stacked = ntt_pallas.ntt(torch.stack(polys, dim=-2), moduli[m], cfg.psi[m])
+        for j in range(L):
+            nd[j][m] = stacked[..., j, :]
+        if m < L:
+            a_aut[m] = stacked[..., L, :]
+
+    # 3. KSK inner products, stride 2L rows per modulus
+    stride = 2 * L
+
+    def inner(m, part):
+        q = moduli[m]
+        acc = rt.mulmod(nd[0][m], ksk[stride * m + part].expand_as(nd[0][m]), q)
+        for j in range(1, L):
+            acc = rt.addmod(
+                acc, rt.mulmod(nd[j][m], ksk[stride * m + 2 * j + part].expand_as(nd[j][m]), q),
+                q)
+        return acc
+
+    c = [[inner(m, part) for part in (0, 1)] for m in range(L + 1)]
+
+    # 4. mod-down by P with (P-1)/2 rounding, scale by P^-1 mod q
+    p_pair = ntt_pallas.intt(torch.stack(c[L], dim=-2), sp, cfg.ipsi[-1])
+    m_coeff = [rt.addmod(p_pair[..., p, :], torch.full_like(p_pair[..., p, :], half), sp)
+               for p in (0, 1)]
+    ks = []
+    for m in range(L):
+        q = moduli[m]
+        corr = ntt_pallas.ntt(
+            torch.stack([rt.submod(x, torch.full_like(x, half), q) for x in m_coeff], dim=-2),
+            q, cfg.psi[m])
+        ks.append([
+            rt.mulmod(t, torch.full_like(t, cfg.pinv_mod(m)), q)
+            for t in (rt.submod(c[m][p], corr[..., p, :], q) for p in (0, 1))
+        ])
+
+    # 5. the rotated message part aut(a) plus the key-switch a-part
+    return (torch.stack([rt.addmod(a_aut[m], ks[m][0], moduli[m]) for m in range(L)], dim=-2),
+            torch.stack([ks[m][1] for m in range(L)], dim=-2))
 
 
 def galois_hoisted(ct, step_exps, ksks, cfg: HEConfig = DEFAULT_CONFIG):
@@ -149,6 +242,24 @@ def matvec_bsgs(ct, diags, ksks_baby, ksks_giant,
     ):
         acc = hom_add(acc, r, cfg)
     return acc
+
+
+def ct_mul(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
+    """Ciphertext x ciphertext tensor product, limb by limb in the NTT
+    domain: (d0, d1, d2) = (a1 a2, a1 b2 + b1 a2, b1 b2), decrypting as
+    d0 + d1 s + d2 s^2 (he_planes.ct_mul)."""
+    (a1, b1), (a2, b2) = ct1, ct2
+    d1 = _per_limb(rt.addmod, _per_limb(rt.mulmod, a1, b2, cfg),
+                   _per_limb(rt.mulmod, b1, a2, cfg), cfg)
+    return _per_limb(rt.mulmod, a1, a2, cfg), d1, _per_limb(rt.mulmod, b1, b2, cfg)
+
+
+def relinearize(d0, d1, d2, rlk, cfg: HEConfig = DEFAULT_CONFIG):
+    """Fold d2 s^2 back to degree 1 with the relinearization key: the
+    key-switch pair on d2 as the b input with e = 1 (no automorphism) and a
+    zero rider, added into (d0, d1) (he_planes.relinearize, :558-565)."""
+    ka, kb = ks_kernel.rotate_planes(torch.zeros_like(d2), d2, 1, rlk, cfg)
+    return _per_limb(rt.addmod, d0, ka, cfg), _per_limb(rt.addmod, d1, kb, cfg)
 
 
 def rescale(ct, cfg: HEConfig = DEFAULT_CONFIG):

@@ -152,6 +152,18 @@ def galois_secret(sk: SecretKey, exp: int, cfg: HEConfig = DEFAULT_CONFIG):
     return out
 
 
+def relin_secret(sk: SecretKey, cfg: HEConfig = DEFAULT_CONFIG):
+    """Integer coefficients (N,) int64 of s^2 in the negacyclic ring, the
+    source secret of the relinearization key.  Each is a sum of at most N
+    products of ternary coefficients, so |s^2_i| <= N < q0/2 and the
+    centred lift of INTT_{q0}(NTT(s)^2) gives the integers exactly (the JAX
+    package sums the convolution on the host, aloha_tpu/keys.py:243-252)."""
+    q = cfg.moduli[0]
+    sq = rt.mulmod(sk.ntt[0], sk.ntt[0], q)
+    c = ntt_stream.transform_limbs(sq[None], (q,), (cfg.ipsi[0],), True)[0]
+    return torch.where(c > q // 2, c - q, c)
+
+
 def encrypt_with(m_signed, sk: SecretKey, noise, b, cfg: HEConfig = DEFAULT_CONFIG):
     """Symmetric RLWE encryption of signed coefficients (..., N) from the
     draws of `draw_encryption`: a = NTT(m + e) - b s, limb by limb."""
@@ -192,6 +204,16 @@ def gen_galois_key(sk: SecretKey, exp: int, cfg: HEConfig, generator: torch.Gene
 def gen_rotation_key(sk: SecretKey, step: int, cfg: HEConfig, generator: torch.Generator):
     """KSK for the slot rotation by `step` (X -> X^(3^step))."""
     return gen_galois_key(sk, pow(3, step, 2 * cfg.n), cfg, generator)
+
+
+def gen_conjugation_key(sk: SecretKey, cfg: HEConfig, generator: torch.Generator):
+    """KSK for the slot conjugation (X -> X^(2N-1))."""
+    return gen_galois_key(sk, 2 * cfg.n - 1, cfg, generator)
+
+
+def gen_relin_key(sk: SecretKey, cfg: HEConfig, generator: torch.Generator):
+    """KSK for relinearization: switches s^2 back to s."""
+    return gen_ksk(relin_secret(sk, cfg), sk, cfg, generator)
 
 
 def encrypt(m_signed, sk: SecretKey, cfg: HEConfig, generator: torch.Generator):

@@ -18,18 +18,31 @@ Phases, each printing its own line; any failure exits nonzero:
      cleartext product, ciphertext 0 of request 0 word-exact against the
      port's plain path on CPU tensors, and every kernel launched by the
      requests;
-  5. bench: ntt, ntt_mxu and the chain (k=64) at the bench's own shapes
-     and inputs against their plain versions (torch.equal); then
-     aloha_tpu_torch.bench.run at N=8192, batch 256, the fused chain cut
-     to k=64: each form's NTT/s, bit-exact against the ntt_np chain, with
-     ntt and both ntt_mxu wrappers launched;
+  5. bench: ntt, ntt_grid, ntt_mxu and the chain (k=64) at the bench's
+     own shapes and inputs against their plain versions (torch.equal);
+     then aloha_tpu_torch.bench.run at N=8192, batch 256, the fused chain
+     cut to k=64: each form's NTT/s, bit-exact against the ntt_np chain,
+     with ntt, ntt_grid and both ntt_mxu wrappers launched;
   6. shard: ntt_stream.transform_with_tables (the NTT kernel fed a shard's
      tables) for D in {1, 2, 4, 8}, shards 0 and D-1, both directions, at
      N=8192, nb=64, q0, against its plain version; then
      parallel.ntt_sharded / intt_sharded at N=8192 through a real NCCL
      process group of D ranks, D the largest power of two <= the visible
      GPUs (one card: D=1, a world of one): forward equal to ntt_np.ntt on
-     the first two polynomials, round trip exact, the kernel launched.
+     the first two polynomials, round trip exact, the kernel launched;
+  7. multiply: ntt_grid (the grid NTT, csrc/ntt_grid.cu) forward and
+     inverse under q0, q1 and P at N=8192, nb=64 (one row at the top of
+     the input window), at nb=16 (the encode shape) and at n=128 and 1024,
+     each against its plain version and beside csrc/ntt.cu at the same
+     shapes; then 3 batches of B=16 cleartext pairs: he_torch.encode on
+     the card (the fixed-point encoder, one ntt_grid launch per limb),
+     encryption with the port's keys, ct_mul -> relinearize -> rescale,
+     and a rotation by one step both per transform (8 ntt_grid launches)
+     and fused (ks_head/ks_tail).  Encodings word-exact against the NumPy
+     encoder_hw + ntt_np, the relinearized product within 1e-4 of z1 z2
+     (CRT over both limbs at Delta^2), the rescaled one within 0.15, the
+     two rotations equal, ciphertext 0 word-exact against the port's plain
+     path on CPU tensors, and ntt_grid, ntt, ks_head, ks_tail launched.
 The line before the last is a JSON object of the kernels (launches summed
 over the main paths, and per path; each kernel's bound from this run's
 shapes); the last line is {"ok": true, "device": {...}}.
@@ -48,6 +61,9 @@ BENCH = dict(batch=256, chain_k=64)
 SHARD_NB = 64  # polynomials of the shard phase
 SHARD_DS = (1, 2, 4, 8)  # shard counts whose tables the kernel is held on
 SHARD_TIMEOUT_S = 300  # the spawned sharded ranks, when there are several cards
+MUL_BATCHES = 3  # batches of B cleartext pairs on the multiply path
+GRID_NB = 64  # polynomials of the grid-kernel cases
+RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
 
 
@@ -316,7 +332,7 @@ def phase_bench(card: str, dev, results: dict):
     from aloha_tpu_torch import bench
     from aloha_tpu_torch import convert as cv
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
-    from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
+    from aloha_tpu_torch.ops import ntt_mxu, ntt_pallas, ntt_stream
 
     # each wrapper at the bench's own shapes and inputs, against its plain version
     n, q, psi = CFG.n, CFG.moduli[0], CFG.psi[0]
@@ -328,6 +344,9 @@ def phase_bench(card: str, dev, results: dict):
           lambda: ntt_stream.transform(x1, (q,), (psi,), False),
           lambda: ntt_stream.transform_plain(x1, (q,), (psi,), False),
           ntt_work(nb, 1, n, False), 1, 3)
+    check(results, card, "ntt_grid", f"fwd q0 ({nb}, {n}) bench",
+          lambda: ntt_pallas.ntt(x, q, psi), lambda: ntt_pallas.ntt_plain(x, q, psi),
+          ntt_work(nb, 1, n, False), 1, 3)
     check(results, card, "ntt_mxu", f"fwd q0 (1, {nb}, {n}) bench",
           lambda: ntt_mxu.transform(x1, (q,), (psi,), False),
           lambda: ntt_mxu.transform_plain(x1, (q,), (psi,), False), mxu_work(nb, 1), 1, 3)
@@ -336,8 +355,8 @@ def phase_bench(card: str, dev, results: dict):
           lambda: ntt_mxu.chain_plain(x, q, psi, k, False), mxu_work(nb, 1, k), 0, 1)
 
     # the main path: counts start at 0 here
-    counters = {"ntt": ntt_stream.transform, "ntt_mxu": ntt_mxu.transform,
-                "ntt_mxu_chain": ntt_mxu.chain}
+    counters = {"ntt": ntt_stream.transform, "ntt_grid": ntt_pallas.transform,
+                "ntt_mxu": ntt_mxu.transform, "ntt_mxu_chain": ntt_mxu.chain}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -528,6 +547,166 @@ def phase_shard(card: str, dev, results: dict):
     return {"ntt_with_tables": launches}
 
 
+def _grid_cases(card: str, dev, results: dict):
+    """ntt_grid against its plain version, and csrc/ntt.cu at the same
+    shapes and inputs, so that the two designs are compared on one card."""
+    import numpy as np
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_pallas, ntt_stream
+
+    rng = np.random.default_rng(SEED + 4)
+    N = CFG.n
+    shapes = [(m, GRID_NB, N, True) for m in range(3)]  # q0, q1, P; both directions
+    shapes += [(m, B, N, False) for m in range(2)]  # the encode shape, per limb
+    shapes += [(0, GRID_NB, n, True) for n in (128, 1024)]
+    for m, nb, n, both in shapes:
+        q = CFG.moduli[m]
+        for inv in (False, True) if both else (False,):
+            root = pow((CFG.ipsi if inv else CFG.psi)[m], N // n, q)
+            x = rng.integers(0, q, size=(nb, n), dtype=np.uint64)
+            # one row at the top of the input window: < 4q forward, < 2q inverse
+            x[-1] += np.uint64(q) * rng.integers(1, 2 if inv else 4, size=n, dtype=np.uint64)
+            x = cv.from_u64(x, dev)
+            plain = ntt_pallas.intt_plain if inv else ntt_pallas.ntt_plain
+            label = f"{'inv' if inv else 'fwd'} {('q0', 'q1', 'P')[m]} nb={nb} n={n}"
+            work = ntt_work(nb, 1, n, inv)
+            check(results, card, "ntt_grid", label,
+                  lambda: ntt_pallas.transform(x, q, root, inv), lambda: plain(x, q, root), work)
+            check(results, card, "ntt", label,
+                  lambda: ntt_stream.transform(x[None], (q,), (root,), inv),
+                  lambda: ntt_stream.transform_plain(x[None], (q,), (root,), inv), work)
+
+
+def _crt_slots(ct, sk, CFG):
+    """Slots of a ciphertext whose message exceeds one limb (a product at
+    Delta^2): decrypt under both limbs, recombine by CRT, centre mod q0 q1."""
+    import numpy as np
+
+    from aloha_tpu_torch import encoder, keys
+
+    q0, q1 = CFG.moduli[0], CFG.moduli[1]
+    r0, r1 = (keys.decrypt(ct, sk, CFG, limb=k).cpu().numpy().astype(object) for k in (0, 1))
+    Q = q0 * q1
+    x = (r0 * (q1 * pow(q1, -1, q0)) + r1 * (q0 * pow(q0, -1, q1))) % Q
+    x = np.where(x > Q // 2, x - Q, x)
+    return encoder.decode_coeffs((x / float(encoder.DELTA)).astype(np.float64), CFG)
+
+
+def phase_multiply(card: str, dev, results: dict):
+    import numpy as np
+    import torch
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import encoder, encoder_hw, keys, ntt_np
+    from aloha_tpu_torch import he_torch as ht
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ks_kernel as ksk_ops
+    from aloha_tpu_torch.ops import ntt_pallas, ntt_stream
+
+    _grid_cases(card, dev, results)
+    n, S, L = CFG.n, CFG.n // 2, CFG.n_limbs
+    q0, q1 = CFG.moduli[0], CFG.moduli[1]
+    cpu = torch.device("cpu")
+
+    # set-up: keys on the card from a seeded generator, cleartexts on the host
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    sk = keys.gen_secret(CFG, gen, dev)
+    rlk = keys.gen_relin_key(sk, CFG, gen)
+    rk = keys.gen_rotation_key(sk, 1, CFG, gen)
+    for k in (rlk, rk):  # one-time key preparation, as at key load
+        ksk_ops.prepare_ksk(k, CFG)
+    rng = np.random.default_rng(SEED + 6)
+    batches = []
+    for _ in range(MUL_BATCHES):
+        zs = [rng.uniform(-1, 1, (B, S)) + 1j * rng.uniform(-1, 1, (B, S)) for _ in range(2)]
+        clear = [np.stack([encoder.cleartext_from_slots(v) for v in z]) for z in zs]
+        batches.append((zs, clear, [torch.from_numpy(c).to(dev) for c in clear]))
+    print(f"multiply: set-up {time.perf_counter() - t0:.1f} s (relinearization and rotation "
+          f"keys on the card, {MUL_BATCHES}x2x{B} cleartexts on the host)", flush=True)
+
+    # the main path: counts start at 0 here
+    counters = {"ntt_grid": ntt_pallas.transform, "ntt": ntt_stream.transform,
+                "ks_head": ksk_ops.ks_head, "ks_tail": ksk_ops.ks_tail}
+    for fn in counters.values():
+        fn.launches = 0
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    secs = {"encode": [], "multiply": [], "rotate_per_transform": [], "rotate": []}
+    outs = []
+    for _, _, clear in batches:
+        pts, s = timed(lambda: [ht.encode(c, CFG) for c in clear])
+        secs["encode"].append(s)
+        cts = []
+        for pt in pts:  # encrypt the centred limb-0 coefficients
+            m = ntt_pallas.intt(pt[:, 0, :], q0, CFG.ipsi[0])
+            cts.append(keys.encrypt(torch.where(m > q0 // 2, m - q0, m), sk, CFG, gen))
+        def chain():
+            r = ht.relinearize(*ht.ct_mul(cts[0], cts[1], CFG), rlk, CFG)
+            return r, ht.rescale(r, CFG)
+
+        (relin, res), s = timed(chain)
+        secs["multiply"].append(s)
+        rot, s = timed(lambda: ht.rotate_per_transform(relin, 1, rk, CFG))
+        secs["rotate_per_transform"].append(s)
+        fused, s = timed(lambda: ht.rotate(relin, 1, rk, CFG))
+        secs["rotate"].append(s)
+        outs.append((pts, cts, relin, res, rot, fused))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    times = "; ".join(f"{k} {[round(x, 4) for x in v]} s" for k, v in secs.items())
+    print(f"multiply: {MUL_BATCHES} batches of B={B} pairs (N={n}, L={L}), per batch: "
+          f"{times}; launches={launches} on {card}", flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the multiply path")
+
+    # checks
+    (_, clear0, _), (pts0, cts0, *_) = batches[0], outs[0]
+    for i in (0, 1):  # cleartexts 0 and 1 of both operands
+        for op in (0, 1):
+            coeff = encoder_hw.encode(clear0[op][i], CFG)
+            want = np.stack([ntt_np.ntt(coeff[m], CFG.moduli[m], CFG.psi[m]) for m in range(L)])
+            if not np.array_equal(cv.to_u64(pts0[op][i]), want):
+                fail(f"he_torch.encode of cleartext {i} (operand {op}) differs from "
+                     f"encoder_hw.encode + ntt_np.ntt")
+    worst_relin = worst_res = 0.0
+    for (zs, _, _), (_, _, relin, res, rot, fused) in zip(batches, outs):
+        if relin[0].shape != (B, L, n) or res[0].shape != (B, L - 1, n):
+            fail(f"output shapes {relin[0].shape}, {res[0].shape}")
+        want = zs[0] * zs[1]
+        worst_relin = max(worst_relin, float(np.abs(_crt_slots(relin, sk, CFG) - want).max()))
+        m = keys.decrypt(res, sk, CFG).cpu().numpy()
+        got = encoder.decode_coeffs(m.astype(np.float64), CFG) * (q1 / encoder.DELTA)
+        worst_res = max(worst_res, float(np.abs(got - want).max()))
+        if not (torch.equal(rot[0], fused[0]) and torch.equal(rot[1], fused[1])):
+            fail("rotate_per_transform differs from the fused rotate")
+    if not worst_relin < RELIN_ENVELOPE:
+        fail(f"relinearized decrypt error {worst_relin} >= {RELIN_ENVELOPE}")
+    if not worst_res < ENVELOPE:
+        fail(f"rescaled decrypt error {worst_res} >= {ENVELOPE}")
+    t = time.perf_counter()
+    one = [tuple(p[:1].to(cpu) for p in ct) for ct in cts0]
+    ref = ht.rescale(ht.relinearize(*ht.ct_mul(one[0], one[1], CFG), rlk.to(cpu), CFG), CFG)
+    cpu_s = time.perf_counter() - t
+    res0 = outs[0][3]
+    if not (torch.equal(res0[0][:1].cpu(), ref[0]) and torch.equal(res0[1][:1].cpu(), ref[1])):
+        fail("ciphertext 0 differs from the plain ct_mul + relinearize + rescale on the CPU")
+    print(f"multiply: encodings word-exact against encoder_hw + ntt_np; max decrypt error "
+          f"{worst_relin:.3g} < {RELIN_ENVELOPE} relinearized (Delta^2, CRT), "
+          f"{worst_res:.4f} < {ENVELOPE} rescaled, over {MUL_BATCHES * B} products; "
+          f"rotate_per_transform equal to the fused rotate on all; ciphertext 0 word-exact "
+          f"against the plain path on CPU tensors (CPU reference: {cpu_s:.1f} s on the host)",
+          flush=True)
+    return launches
+
+
 def main():
     card = phase_device()
     import torch
@@ -541,7 +720,8 @@ def main():
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results),
-                 "shard": phase_shard(card, dev, results)}
+                 "shard": phase_shard(card, dev, results),
+                 "multiply": phase_multiply(card, dev, results)}
     except SystemExit:
         raise
     except Exception:
@@ -564,6 +744,8 @@ def main():
                           "aloha_tpu/ops/ntt_mxu.py:742", f"fwd q0 k={k} nb={nb} bench"),
         "ntt_with_tables": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:775",
                             None, f"fwd D=1 d=0 nb={SHARD_NB}"),
+        "ntt_grid": ("aloha_tpu_torch/csrc/ntt_grid.cu", "aloha_tpu/ops/ntt_pallas.py:378",
+                     None, f"fwd q0 nb={GRID_NB} n={n}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():

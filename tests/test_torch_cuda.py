@@ -18,7 +18,7 @@ from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
-from aloha_tpu_torch.ops import ks_kernel, ntt_mxu, ntt_stream
+from aloha_tpu_torch.ops import ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -133,6 +133,37 @@ def test_ntt_with_tables_kernel_matches_plain(dev, D, inverse):
         assert torch.equal(got, ntt_stream.transform_with_tables_plain(x, w, ws, q, inverse))
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [0, 1, 2])
+@pytest.mark.parametrize("n", [128, 1024, 8192])
+def test_ntt_grid_kernel_matches_plain(dev, n, m, inverse):
+    """The grid kernel under q0, q1 and P at n = 128, 1024 and 8192 with the
+    roots psi^(N/n); one row at the top of the input window (< 4q forward,
+    < 2q inverse) and a (2, 3, n) batch shape."""
+    q = CFG.moduli[m]
+    root = pow((CFG.ipsi if inverse else CFG.psi)[m], N // n, q)
+    rng = np.random.default_rng(20 + m)
+    x = rng.integers(0, q, size=(2, 3, n), dtype=np.uint64)
+    x[1, 2] += np.uint64(q) * rng.integers(1, 2 if inverse else 4, size=n, dtype=np.uint64)
+    x = cv.from_u64(x, dev)
+    before = ntt_pallas.transform.launches
+    got = ntt_pallas.transform(x, q, root, inverse)
+    torch.cuda.synchronize()
+    assert ntt_pallas.transform.launches == before + 1
+    plain = ntt_pallas.intt_plain if inverse else ntt_pallas.ntt_plain
+    assert torch.equal(got, plain(x, q, root))
+
+
+def test_he_torch_encode_on_card_matches_cpu(dev):
+    """The fixed-point encoder and the per-limb grid transforms on the card
+    give the CPU's words, for a batch of three cleartexts."""
+    from aloha_tpu_torch import encoder_torch
+
+    c = torch.from_numpy(np.random.default_rng(30).uniform(-1, 1, size=(3, N)))
+    assert torch.equal(encoder_torch.encode(c.to(dev), CFG).cpu(), encoder_torch.encode(c, CFG))
+    assert torch.equal(ht.encode(c.to(dev), CFG).cpu(), ht.encode(c, CFG))
+
+
 @pytest.mark.parametrize("step_exp", [None, pow(3, 5, 2 * N), 2 * N - 1])
 def test_ks_head_kernel_matches_plain(dev, step_exp):
     b = _residues(np.random.default_rng(2), (4,), CFG.moduli[:L], dev)
@@ -185,3 +216,31 @@ def test_serving_chain_on_card_matches_he_np(dev):
         CFG, g=2), CFG)
     assert np.array_equal(cv.to_u64(got[0]), want.a)
     assert np.array_equal(cv.to_u64(got[1]), want.b)
+
+
+def test_multiply_chain_on_card_matches_he_np(dev):
+    """ct_mul -> relinearize -> rescale through the key-switch kernels, and
+    the per-transform rotation through the grid kernel, word-exact against
+    the NumPy oracle."""
+    rng = np.random.default_rng(31)
+    mk = lambda: rng.integers(0, CFG.moduli[0], (L, N), dtype=np.uint64)  # noqa: E731
+    c1 = he_np.Ciphertext(a=mk(), b=mk())
+    c2 = he_np.Ciphertext(a=mk(), b=mk())
+    sk = keys.gen_secret(CFG, rng=np.random.default_rng(32))
+    rlk = keys.gen_relin_key(sk, CFG, rng=np.random.default_rng(33))
+    rk = keys.gen_rotation_key(sk, 1, CFG, rng=np.random.default_rng(34))
+    d = ht.ct_mul(cv.ct_from_np(c1, dev), cv.ct_from_np(c2, dev), CFG)
+    relin = ht.relinearize(*d, cv.ksk_from_np(rlk, CFG, dev), CFG)
+    got = ht.rescale(relin, CFG)
+    want = he_np.relinearize(*he_np.ct_mul(c1, c2, CFG), rlk, CFG)
+    assert np.array_equal(cv.to_u64(relin[0]), want.a)
+    assert np.array_equal(cv.to_u64(relin[1]), want.b)
+    want_rs = he_np.rescale(he_np.Ciphertext(a=want.a.copy(), b=want.b.copy()), CFG)
+    assert np.array_equal(cv.to_u64(got[0]), want_rs.a)
+    assert np.array_equal(cv.to_u64(got[1]), want_rs.b)
+    before = ntt_pallas.transform.launches
+    rot = ht.rotate_per_transform(relin, 1, cv.ksk_from_np(rk, CFG, dev), CFG)
+    assert ntt_pallas.transform.launches == before + 3 * L + 2
+    want_rot = he_np.rotate(he_np.Ciphertext(a=want.a.copy(), b=want.b.copy()), 1, rk, CFG)
+    assert np.array_equal(cv.to_u64(rot[0]), want_rot.a)
+    assert np.array_equal(cv.to_u64(rot[1]), want_rot.b)

@@ -180,3 +180,75 @@ def test_encrypted_matvec_decrypts_within_envelope(data):
     got = encoder.decode(res[None, :], CFG, limb=0) * (CFG.moduli[1] / encoder.DELTA)
     want = sum(d * np.roll(z, -k) for k, d in enumerate(dvecs))
     assert np.abs(got - want).max() < 0.15
+
+
+# --------------------------------------- the per-transform surface of he_jax
+@pytest.fixture(scope="module")
+def batch2(data):
+    """The two ciphertexts as one B = 2 batch, with zeros in ciphertext 0's
+    a-part, which the automorphism turns into the literal q."""
+    cts, *_ = data
+    a = np.stack([c.a for c in cts])
+    b = np.stack([c.b for c in cts])
+    a[0, 0, :5] = 0
+    return a, b
+
+
+def test_rotate_per_transform_equals_he_np_and_the_fused_rotate(data, batch2):
+    _, _, _, ksks = data
+    a, b = batch2
+    ct = (cv.from_u64(a, CPU), cv.from_u64(b, CPU))
+    got = ht.rotate_per_transform(ct, 1, cv.ksk_from_np(ksks[1], CFG, CPU), CFG)
+    fused = ht.rotate(ct, 1, cv.ksk_from_np(ksks[1], CFG, CPU), CFG)
+    assert torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+    for i in range(2):
+        want = he_np.rotate(he_np.Ciphertext(a=a[i].copy(), b=b[i].copy()), 1, ksks[1], CFG)
+        _assert_ct((got[0][i], got[1][i]), want)
+
+
+def test_rotate_per_transform_equals_he_jax_rotate(data, batch2):
+    """he_jax.rotate itself (on the CPU its transforms take the XLA route)."""
+    from aloha_tpu import he_jax
+
+    _, _, _, ksks = data
+    a, b = batch2
+    got = ht.rotate_per_transform((cv.from_u64(a, CPU), cv.from_u64(b, CPU)), 3,
+                                  cv.ksk_from_np(ksks[3], CFG, CPU), CFG)
+    wa, wb = he_jax.rotate((a, b), 3, ksks[3], CFG)
+    assert np.array_equal(cv.to_u64(got[0]), np.asarray(wa))
+    assert np.array_equal(cv.to_u64(got[1]), np.asarray(wb))
+
+
+def test_ct_mul_relinearize_rescale_equal_he_jax_and_he_np(data):
+    """The leveled multiply against he_jax's u64 wrappers (the he_planes
+    path) and he_np, as tests/test_he_jax.py holds them."""
+    from aloha_tpu import he_jax
+
+    (c1, c2), _, sk, _ = data
+    rlk = keys.gen_relin_key(sk, CFG, rng=np.random.default_rng(9))
+    d = ht.ct_mul(cv.ct_from_np(c1, CPU), cv.ct_from_np(c2, CPU), CFG)
+    jd = he_jax.ct_mul((c1.a, c1.b), (c2.a, c2.b), CFG)
+    w = he_np.ct_mul(_np_ct(c1), _np_ct(c2), CFG)
+    for got, jwant, want in zip(d, jd, w):
+        assert np.array_equal(cv.to_u64(got), np.asarray(jwant))
+        assert np.array_equal(cv.to_u64(got), want)
+    out = ht.relinearize(*d, cv.ksk_from_np(rlk, CFG, CPU), CFG)
+    _assert_ct(out, he_np.relinearize(*w, rlk, CFG))
+    ja, jb = he_jax.relinearize(*jd, rlk, CFG)
+    assert np.array_equal(cv.to_u64(out[0]), np.asarray(ja))
+    assert np.array_equal(cv.to_u64(out[1]), np.asarray(jb))
+    rs = ht.rescale(out, CFG)
+    assert rs[0].shape == (L - 1, N)
+    ra, rb = he_jax.rescale((ja, jb), CFG)
+    assert np.array_equal(cv.to_u64(rs[0]), np.asarray(ra))
+    assert np.array_equal(cv.to_u64(rs[1]), np.asarray(rb))
+
+
+def test_relinearize_head_without_automorphism_gives_the_same_words(data):
+    """The key-switch head with e = 1 (the identity) and the hoisted head
+    (no automorphism) raise the same digits for relinearize."""
+    from aloha_tpu_torch.ops import ks_kernel
+
+    (c1, _), *_ = data
+    b = cv.from_u64(c1.b, CPU)[:, None]  # (L, nb, N), the head's layout
+    assert torch.equal(ks_kernel.ks_head_plain(b, 1, CFG), ks_kernel.ks_head_plain(b, None, CFG))

@@ -9,6 +9,9 @@
   secret carried across by `convert.sk_from_np`;
 - a rotation key made by the port rotates: `he_torch.rotate`, then decrypt,
   gives the rotated message within 0.15;
+- the relinearization and conjugation keys' cores equal the JAX package's,
+  and the multiply chain on the port's keys and device encoder decrypts
+  within 1e-4 (relinearized, at Delta^2) and 0.15 (rescaled);
 - `encoder` equals `aloha_tpu.encoder`.
 """
 
@@ -25,6 +28,7 @@ from aloha_tpu import ntt_np as jax_ntt_np
 from aloha_tpu_torch import config, encoder, keys, ntt_np
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
+from aloha_tpu_torch.ops import ntt_pallas
 
 torch.set_num_threads(2)
 
@@ -112,6 +116,15 @@ def test_secret_key_core_and_carry_across(secret):
     assert torch.equal(keys.gen_secret(CFG, torch.Generator().manual_seed(1), CPU).ntt, sk.ntt)
 
 
+def _ksk_draws(chunks, noise):
+    """The draws of `draw_ksk` in the order the JAX key functions ask for
+    them: per digit the uniform chunks, then the error."""
+    draws = []
+    for j in range(CFG.n_limbs):
+        draws += [c.numpy().view(np.uint64) for c in chunks[j]] + [noise[j].numpy()]
+    return draws
+
+
 def test_rotation_key_core_equals_the_jax_package(secret):
     sk, jsk = secret
     step = 3
@@ -120,13 +133,34 @@ def test_rotation_key_core_equals_the_jax_package(secret):
     assert bool((chunks >= 0).all())
     got = keys.ksk_from_draws(keys.galois_secret(sk, pow(3, step, 2 * N), CFG), sk,
                               chunks, noise, CFG)
-    draws = []
-    for j in range(CFG.n_limbs):  # the JAX order: the uniform chunks, then the error
-        draws += [c.numpy().view(np.uint64) for c in chunks[j]] + [noise[j].numpy()]
-    want = jax_keys.gen_rotation_key(jsk, step, JCFG, rng=Replay(draws))
+    want = jax_keys.gen_rotation_key(jsk, step, JCFG, rng=Replay(_ksk_draws(chunks, noise)))
     assert np.array_equal(cv.to_u64(got), want)
     wrapped = keys.gen_rotation_key(sk, step, CFG, torch.Generator().manual_seed(2))
     assert torch.equal(wrapped, got)
+
+
+def test_relin_key_core_equals_the_jax_package(secret):
+    sk, jsk = secret
+    s = sk.coeff.numpy()
+    s2 = np.zeros(N, dtype=np.int64)  # the negacyclic square, summed directly
+    for shift in np.flatnonzero(s):
+        s2[shift:] += s[shift] * s[:N - shift]
+        s2[:shift] -= s[shift] * s[N - shift:]
+    assert np.array_equal(keys.relin_secret(sk, CFG).numpy(), s2)
+    chunks, noise = keys.draw_ksk(CFG, torch.Generator().manual_seed(11))
+    got = keys.ksk_from_draws(keys.relin_secret(sk, CFG), sk, chunks, noise, CFG)
+    want = jax_keys.gen_relin_key(jsk, JCFG, rng=Replay(_ksk_draws(chunks, noise)))
+    assert np.array_equal(cv.to_u64(got), want)
+    assert torch.equal(keys.gen_relin_key(sk, CFG, torch.Generator().manual_seed(11)), got)
+
+
+def test_conjugation_key_core_equals_the_jax_package(secret):
+    sk, jsk = secret
+    chunks, noise = keys.draw_ksk(CFG, torch.Generator().manual_seed(12))
+    got = keys.ksk_from_draws(keys.galois_secret(sk, 2 * N - 1, CFG), sk, chunks, noise, CFG)
+    want = jax_keys.gen_conjugation_key(jsk, JCFG, rng=Replay(_ksk_draws(chunks, noise)))
+    assert np.array_equal(cv.to_u64(got), want)
+    assert torch.equal(keys.gen_conjugation_key(sk, CFG, torch.Generator().manual_seed(12)), got)
 
 
 def test_encrypt_core_equals_the_jax_package(secret):
@@ -181,3 +215,30 @@ def test_encoder_equals_the_jax_package():
         encoder.slots_from_cleartext(np.zeros(3))
     with pytest.raises(ValueError):
         encoder.encode(np.zeros(N - 2), CFG)
+
+
+def test_multiply_chain_decrypts_within_envelopes(secret):
+    """The device encoder, encryption with the port's keys, ct_mul ->
+    relinearize -> rescale: the relinearized product decrypts (CRT over both
+    limbs at Delta^2) within 1e-4 of z1 z2, the rescaled one within 0.15
+    (tests/test_keys.py's envelopes for the JAX package)."""
+    sk, _ = secret
+    gen = torch.Generator().manual_seed(13)
+    rng = np.random.default_rng(14)
+    q0, q1 = CFG.moduli[0], CFG.moduli[1]
+    zs = [rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2) for _ in range(2)]
+    cts = []
+    for z in zs:
+        pt = ht.encode(torch.from_numpy(encoder.cleartext_from_slots(z)), CFG)
+        m = ntt_pallas.intt(pt[0], q0, CFG.ipsi[0])  # limb 0, centred
+        cts.append(keys.encrypt(torch.where(m > q0 // 2, m - q0, m), sk, CFG, gen))
+    relin = ht.relinearize(*ht.ct_mul(*cts, CFG), keys.gen_relin_key(sk, CFG, gen), CFG)
+    r0, r1 = (keys.decrypt(relin, sk, CFG, limb=k).numpy().astype(object) for k in (0, 1))
+    Q = q0 * q1
+    x = (r0 * (q1 * pow(q1, -1, q0)) + r1 * (q0 * pow(q0, -1, q1))) % Q
+    x = np.where(x > Q // 2, x - Q, x)
+    got = encoder.decode_coeffs((x / float(encoder.DELTA)).astype(np.float64), CFG)
+    assert np.abs(got - zs[0] * zs[1]).max() < 1e-4
+    m = keys.decrypt(ht.rescale(relin, CFG), sk, CFG).numpy()
+    got = encoder.decode_coeffs(m.astype(np.float64), CFG) * (q1 / encoder.DELTA)
+    assert np.abs(got - zs[0] * zs[1]).max() < 0.15

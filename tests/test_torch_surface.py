@@ -25,7 +25,7 @@ import torch
 from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
-from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_mxu, ntt_stream
+from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 
 torch.set_num_threads(2)
 
@@ -62,14 +62,15 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert {'aloha_tpu_torch.ops.ntt_mxu', 'aloha_tpu_torch.bench', 'aloha_tpu_torch.keys',"
-        " 'aloha_tpu_torch.parallel.dryrun'} <= set(names)\n"
+        " 'aloha_tpu_torch.parallel.dryrun', 'aloha_tpu_torch.ops.ntt_pallas',"
+        " 'aloha_tpu_torch.encoder_torch', 'aloha_tpu_torch.encoder_hw'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
     res = _run(["-c", code], ROOT)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 16
+    assert int(count) >= 19
     assert loaded == "[]"
     files = sorted((ROOT / "aloha_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
@@ -94,7 +95,8 @@ def test_library_is_named_by_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
-    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "modarith.cuh"}
+    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
+                                                 "modarith.cuh"}
 
 
 def test_dispatch_routes_by_device():
@@ -114,6 +116,8 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         ntt_mxu.transform(x, CFG.moduli[:1], CFG.psi[:1], False)
     with pytest.raises(ValueError):
         ntt_mxu.chain(x[0], CFG.moduli[0], CFG.psi[0], 2, False)
+    with pytest.raises(ValueError):
+        ntt_pallas.ntt(x, CFG.moduli[0], pow(CFG.psi[0], 8, CFG.moduli[0]))
     with pytest.raises(ValueError):
         ks_kernel.ks_head(torch.zeros((2, 1, 8192), dtype=torch.int64, device="meta"),
                           None, CFG)
