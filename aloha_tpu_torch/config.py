@@ -36,6 +36,17 @@ IPSI_DEFAULT: Tuple[int, ...] = (
 #: src/vp/vxu/vxu_lane.sv:539 hard-codes mod_width = 60).
 MOD_WIDTH = 60
 
+#: SPM geometry: 4 banks x 4096 rows x 1 KiB = 16 MiB, "64 ciphertexts"
+#: (reference: src/vp/include/vp_defines.vh:27, src/mem_buf/spm.sv:12-21).
+SPM_ROWS = 16384
+
+#: KSK memory: 9216 rows x 1 KiB (reference: src/top/h2_top.sv:8).
+KSK_ROWS = 9216
+
+#: Lane count of the reference SIMD engine: one memory row is 128 words
+#: (reference: src/vp/include/vp_defines.vh:25).
+NUM_LANES = 128
+
 
 def barrett_iq(q: int, w: int = MOD_WIDTH) -> int:
     """Barrett reciprocal floor(2^(2w+1) / q) of the RTL modmul chain

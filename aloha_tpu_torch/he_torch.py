@@ -35,7 +35,7 @@ import torch
 from aloha_tpu_torch import encoder_torch, ntt_torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
-from aloha_tpu_torch.ops import ks_kernel, ntt_pallas, ntt_stream
+from aloha_tpu_torch.ops import aut, ks_kernel, ntt_pallas, ntt_stream
 
 
 def _per_limb(op, x, y, cfg: HEConfig):
@@ -96,8 +96,9 @@ def encode(cleartext, cfg: HEConfig = DEFAULT_CONFIG):
 
 
 def automorphism(x, step: int, q: int):
-    """X -> X^step in the coefficient domain, RTL sign rule (q - x)."""
-    return ntt_torch.automorphism(x, step, q)
+    """X -> X^step (step odd) in the coefficient domain, RTL sign rule
+    (q - x): the automorphism kernel `ops/aut` on the card."""
+    return aut.automorphism(x, step, q)
 
 
 def galois(ct, step_exp: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
@@ -118,9 +119,10 @@ def conjugate(ct, cjk, cfg: HEConfig = DEFAULT_CONFIG):
 def rotate_per_transform(ct, step: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
     """Slot rotation by `step` with one grid-kernel launch per transform:
     the port of he_jax.rotate / he_jax._rotate_exp (he_jax.py:106-208),
-    step for step.  At L = 2 it is 8 launches: L INTTs of the stacked (b, a)
-    pairs, L+1 NTTs of the raised digits, one INTT under P, L correction
-    NTTs.  Words equal `rotate` (the fused pair) and he_np.rotate."""
+    step for step.  At L = 2 it is 8 grid launches: L INTTs of the stacked
+    (b, a) pairs, L+1 NTTs of the raised digits, one INTT under P, L
+    correction NTTs; and 2L automorphism launches (`ops/aut`).  Words equal
+    `rotate` (the fused pair) and he_np.rotate."""
     a, b = ct
     moduli, L, n = cfg.moduli, cfg.n_limbs, cfg.n
     e = pow(3, step, 2 * n)
@@ -132,8 +134,8 @@ def rotate_per_transform(ct, step: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
     for m in range(L):
         pair = ntt_pallas.intt(torch.stack([b[..., m, :], a[..., m, :]], dim=-2),
                                moduli[m], cfg.ipsi[m])
-        digits.append(ntt_torch.automorphism(pair[..., 0, :], e, moduli[m]))
-        a_aut.append(ntt_torch.automorphism(pair[..., 1, :], e, moduli[m]))
+        digits.append(automorphism(pair[..., 0, :], e, moduli[m]))
+        a_aut.append(automorphism(pair[..., 1, :], e, moduli[m]))
 
     # 2. raise the digits to every modulus, one NTT per modulus
     nd = [[None] * (L + 1) for _ in range(L)]

@@ -42,7 +42,19 @@ Phases, each printing its own line; any failure exits nonzero:
      encoder_hw + ntt_np, the relinearized product within 1e-4 of z1 z2
      (CRT over both limbs at Delta^2), the rescaled one within 0.15, the
      two rotations equal, ciphertext 0 word-exact against the port's plain
-     path on CPU tensors, and ntt_grid, ntt, ks_head, ks_tail launched.
+     path on CPU tensors, and ntt_grid, ntt, ks_head, ks_tail launched;
+  8. isa: aut (csrc/aut.cu) under q0, q1 and P at N=8192, nb=1 and 64, the
+     12 rotation exponents 3^(2^k) and 2N-1 (one row of 0 and q), against
+     its plain version; then the HE vector-ISA replay: an AlohaDevice with
+     the full SPM and KSK memory on the card, rotation keys for 1, 2, 4, 8,
+     and a HostRunner op-list in the reference's case3 format (encode, then
+     per ciphertext of B=16 load, mul_plain, rotate by 2 and by 4, hom_add,
+     store) plus run_rotate(2) and run_rotate_any(5) of the fresh
+     encryptions.  Every stored ciphertext word-exact against he_torch on
+     the card, ciphertext 0 against the replay on CPU tensors, a key-switch
+     .tdb trace verified against the CPU, the rotations decrypting within
+     1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
+     per launch kind, and one profiled key-switch beside the fused rotate.
 The line before the last is a JSON object of the kernels (launches summed
 over the main paths, and per path; each kernel's bound from this run's
 shapes); the last line is {"ok": true, "device": {...}}.
@@ -603,7 +615,7 @@ def phase_multiply(card: str, dev, results: dict):
     from aloha_tpu_torch import he_torch as ht
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
-    from aloha_tpu_torch.ops import ntt_pallas, ntt_stream
+    from aloha_tpu_torch.ops import aut, ntt_pallas, ntt_stream
 
     _grid_cases(card, dev, results)
     n, S, L = CFG.n, CFG.n // 2, CFG.n_limbs
@@ -629,7 +641,7 @@ def phase_multiply(card: str, dev, results: dict):
 
     # the main path: counts start at 0 here
     counters = {"ntt_grid": ntt_pallas.transform, "ntt": ntt_stream.transform,
-                "ks_head": ksk_ops.ks_head, "ks_tail": ksk_ops.ks_tail}
+                "ks_head": ksk_ops.ks_head, "ks_tail": ksk_ops.ks_tail, "aut": aut.automorphism}
     for fn in counters.values():
         fn.launches = 0
 
@@ -707,6 +719,231 @@ def phase_multiply(card: str, dev, results: dict):
     return launches
 
 
+AUT_OPS = 6  # per coefficient: index product, mask, compare, 64-bit q - x (2), select
+
+
+def aut_work(nb: int, n: int):
+    """One csrc/aut.cu launch: nb length-n polynomials read once and written once."""
+    return 2 * nb * n * 8, nb * n * AUT_OPS, "int32"
+
+
+def _trace_device_events(path):
+    """(device events, busy µs) of an exported Chrome trace: the kernels,
+    copies and fills the card ran (one stream, so their intervals add)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return len(dev), sum(float(e.get("dur", 0)) for e in dev)
+
+
+def phase_isa(card: str, dev, results: dict):
+    """The HE vector-ISA replay on the card: AlohaDevice + HostRunner
+    driving the four canned programs, vaut through csrc/aut.cu."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import encoder, keys, profiling, trace_db
+    from aloha_tpu_torch import he_torch as ht
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.isa import programs
+    from aloha_tpu_torch.isa.interp import LaunchArgs, VectorProcessor
+    from aloha_tpu_torch.ops import aut, ntt_stream
+    from aloha_tpu_torch.runtime import host
+    from aloha_tpu_torch.runtime.device import AlohaDevice
+    from aloha_tpu_torch.torch_backend import TorchBackend
+
+    n, S, L = CFG.n, CFG.n // 2, CFG.n_limbs
+    q0 = CFG.moduli[0]
+    cpu = torch.device("cpu")
+
+    # 1. the automorphism kernel against its plain version: q0, q1, P;
+    #    nb = 1 (the ISA's shape) and 64; the 12 rotation exponents and 2N-1;
+    #    one row holding 0 and q
+    rng = np.random.default_rng(SEED + 7)
+    exps = [pow(3, 1 << k, 2 * n) for k in range(12)] + [2 * n - 1]
+    for m, name in enumerate(("q0", "q1", "P")):
+        q = CFG.moduli[m]
+        for nb in (1, 64):
+            x = rng.integers(0, q, size=(nb, n), dtype=np.uint64)
+            x[-1, ::3] = 0
+            x[-1, 1::3] = np.uint64(q)
+            x = cv.from_u64(x, dev)
+            for e in exps:
+                check(results, card, "aut", f"{name} nb={nb} e={e}",
+                      lambda: aut.automorphism(x, e, q), lambda: aut.automorphism_plain(x, e, q),
+                      aut_work(nb, n), 2, 10)
+
+    # 2. set-up: the full SPM and KSK memory on the card, rotation keys for
+    #    components 1, 2, 4, 8 in their slots, B fresh encryptions and one
+    #    cleartext in the host runner's DRAM
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 8)
+    sk = keys.gen_secret(CFG, gen, dev)
+    rk = {c: keys.gen_rotation_key(sk, c, CFG, gen) for c in (1, 2, 4, 8)}
+    device = AlohaDevice(CFG, device=dev)
+    for c, k in rk.items():
+        device.dma_load_ksk(k, row=device.rotation_ksk_ptr(c))
+    zs = rng.uniform(-1, 1, (B, S)) + 1j * rng.uniform(-1, 1, (B, S))
+    signed = []
+    for z in zs:
+        pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
+        signed.append(np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
+                               pt[0].astype(np.int64)))
+    A, Bp = keys.encrypt(torch.from_numpy(np.stack(signed)).to(dev), sk, CFG, gen)
+    flat = np.concatenate([cv.to_u64(A).reshape(B, -1), cv.to_u64(Bp).reshape(B, -1)], axis=1)
+    clear = encoder.cleartext_from_slots(rng.uniform(-1, 1, S) + 1j * rng.uniform(-1, 1, S))
+    enc = functools.partial(encoder.encode, cfg=CFG)
+    runner = host.HostRunner(device, CFG, encoder=enc)
+    ct_bytes = 4 * n * 8
+    for i in range(B):
+        runner.load_dram(host.DRAM_VP_BASE + i * ct_bytes, flat[i])
+    runner.load_dram(host.DRAM_ENCODER_BASE, clear.view(np.uint64))
+    print(f"isa: set-up {time.perf_counter() - t0:.1f} s (SPM {device.spm.shape[0]} rows and "
+          f"KSK {device.ksk_mem.shape[0]} rows on the card, rotation keys 1, 2, 4, 8, "
+          f"{B} encryptions)", flush=True)
+
+    # the op-list in the reference's case3 line format: encode one plaintext,
+    # then per ciphertext load, mul_plain, rotate by 2 and by 4, hom_add, store
+    CT, PT, R1, R2, R3, R4 = 0, 256, 512, 768, 1024, 1280
+
+    def line(op, spm, b, c):
+        return f"{(op << 28) | spm:08x},{b:08x},{c:08x}"
+
+    def block(i):
+        return [line(1, CT, 0, i * ct_bytes), line(5, R1, CT, PT), line(7, R2, 2, R1),
+                line(7, R3, 4, R1), line(6, R4, R2, R3), line(2, R4, 0, (B + i) * ct_bytes)]
+
+    ops = host.parse_op_list("\n".join([line(3, PT, 0, 0)] + sum((block(i) for i in range(B)), [])))
+
+    # the main path: counts start at 0 here
+    counters = {"aut": aut.automorphism, "ntt": ntt_stream.transform}
+    for fn in counters.values():
+        fn.launches = 0
+    prof = profiling.Profiler()
+    profiling.profile_device(device, prof)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(ops)
+    torch.cuda.synchronize()
+    oplist_s = time.perf_counter() - t
+    fresh = {2: [], 5: []}
+    for i in range(B):
+        device.load_cipher(CT, flat[i])
+        device.run_rotate(dest=R2, src=CT, step=2)
+        fresh[2].append(device.store_cipher(R2))
+        device.run_rotate_any(dest=R3, src=CT, step=5, scratch=R4)
+        fresh[5].append(device.store_cipher(R3))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    kind = {programs.ISRAM_ENCODE_POST: "encode_post", programs.ISRAM_MUL_PLAIN: "mul_plain",
+            programs.ISRAM_HOM_ADD: "hom_add", programs.ISRAM_KEYSWITCH: "keyswitch"}
+    per_kind = {kind[int(k[len("run_vp[pc="):-1])]: v for k, v in prof.summary().items()}
+    print(f"isa: op-list of {len(ops)} ops ({B} ciphertexts) in {oplist_s:.3f} s = "
+          f"{len(ops) / oplist_s:.1f} ops/s; host ms per launch (mean, max, count): "
+          + "; ".join(f"{k} {v['mean_s'] * 1e3:.2f}, {v['max_s'] * 1e3:.2f}, {v['count']}"
+                      for k, v in sorted(per_kind.items()))
+          + f"; launches={launches} on {card}", flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the ISA path")
+
+    # 3. checks: every stored ciphertext against he_torch on the card
+    ct = (cv.from_u64(flat[:, :L * n].reshape(B, L, n), dev),
+          cv.from_u64(flat[:, L * n:].reshape(B, L, n), dev))
+    pt = ht.encode_post(cv.from_u64(enc(clear), dev), CFG)
+    prod = ht.mul_plain(ct, pt, CFG)
+    want = ht.hom_add(ht.rotate(prod, 2, rk[2], CFG), ht.rotate(prod, 4, rk[4], CFG), CFG)
+    fused = []  # the fused rotation of the batch, after the warm-up above
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ht.rotate(prod, 2, rk[2], CFG)
+        torch.cuda.synchronize()
+        fused.append(time.perf_counter() - t)
+    fused_s = sorted(fused)[1]
+    want = np.concatenate([cv.to_u64(want[0]).reshape(B, -1), cv.to_u64(want[1]).reshape(B, -1)],
+                          axis=1)
+    stored = np.stack([runner.read_dram(host.DRAM_VP_BASE + (B + i) * ct_bytes, 4 * n)
+                       for i in range(B)])
+    if stored.shape != (B, 4 * n) or not np.array_equal(stored, want):
+        fail("the op-list's ciphertexts differ from mul_plain -> rotate -> hom_add of he_torch")
+
+    # ciphertext 0 against the port's own replay on CPU tensors
+    t = time.perf_counter()
+    cpu_dev = AlohaDevice(CFG, device=cpu)
+    for c in (2, 4):
+        cpu_dev.dma_load_ksk(rk[c].cpu(), row=cpu_dev.rotation_ksk_ptr(c))
+    cpu_runner = host.HostRunner(cpu_dev, CFG, encoder=enc)
+    cpu_runner.load_dram(host.DRAM_VP_BASE, flat[0])
+    cpu_runner.load_dram(host.DRAM_ENCODER_BASE, clear.view(np.uint64))
+    cpu_runner.run(ops[:1 + 6])
+    if not np.array_equal(cpu_runner.read_dram(host.DRAM_VP_BASE + B * ct_bytes, 4 * n), stored[0]):
+        fail("ciphertext 0 of the op-list differs from the replay on CPU tensors")
+    cpu_s = time.perf_counter() - t
+
+    # a key-switch launch recorded on the card verifies instruction by
+    # instruction against the replay on CPU tensors, through a .tdb file
+    device.load_cipher(CT, flat[0])
+    args = LaunchArgs(pc=programs.ISRAM_KEYSWITCH, src0=CT, rslt=R2, step=pow(3, 2, 2 * n),
+                      ksk_ptr=device.rotation_ksk_ptr(2))
+    rows = trace_db.record(device.vp, device.isram, device.spm, device.ksk_mem, args)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_db.write(f"{tmp}/keyswitch.tdb", rows, n)
+        back = trace_db.read(f"{tmp}/keyswitch.tdb")
+        bad = trace_db.verify(VectorProcessor(CFG, TorchBackend(cpu)), device.isram,
+                              device.spm.cpu(), device.ksk_mem.cpu(), args, back)
+        if bad or not back:
+            fail(f"the key-switch trace of the card differs from the CPU replay: {bad[:5]}")
+        # the device's state round trip
+        device.save_state(f"{tmp}/state.npz")
+        again = AlohaDevice(CFG, device=dev)
+        again.load_state(f"{tmp}/state.npz")
+        if not (torch.equal(again.spm, device.spm) and torch.equal(again.ksk_mem, device.ksk_mem)):
+            fail("save_state -> load_state is not word-exact")
+
+    # the rotated fresh encryptions decrypt to the rotated slots
+    worst = {}
+    for step, outs in fresh.items():
+        got = np.stack(outs)
+        c = (cv.from_u64(got[:, :L * n].reshape(B, L, n), dev),
+             cv.from_u64(got[:, L * n:].reshape(B, L, n), dev))
+        m = keys.decrypt(c, sk, CFG).cpu().numpy()
+        err = 0.0
+        for i, z in enumerate(zs):
+            res = np.where(m[i] < 0, m[i] + np.int64(q0), m[i]).astype(np.uint64)
+            err = max(err, float(np.abs(encoder.decode(res[None, :], CFG, limb=0)
+                                        - np.roll(z, -step)).max()))
+        worst[step] = err
+        if not err < RELIN_ENVELOPE:
+            fail(f"run_rotate{'_any' if step == 5 else ''} step {step}: decrypt error {err} "
+                 f">= {RELIN_ENVELOPE}")
+    print(f"isa: {B} ciphertexts word-exact against he_torch on the card; ciphertext 0 "
+          f"word-exact against the CPU replay ({cpu_s:.1f} s on the host); the key-switch "
+          f"trace ({len(rows)} rows) verifies against the CPU; save_state/load_state exact; "
+          f"decrypt error run_rotate(2) {worst[2]:.3g}, run_rotate_any(5) {worst[5]:.3g} "
+          f"< {RELIN_ENVELOPE}", flush=True)
+
+    # 4. one key-switch launch under torch.profiler: device events and busy
+    #    share, beside the fused he_torch.rotate of the same batch
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.Profiler(trace_dir=tmp).device_trace("keyswitch"):
+            device.run_rotate(dest=R2, src=CT, step=2)
+        traced_s = prof.records[-1].seconds  # the launch alone, synchronised, profiler on
+        n_dev, busy_us = _trace_device_events(f"{tmp}/keyswitch.json")
+    ks_ms = per_kind["keyswitch"]["mean_s"] * 1e3
+    print(f"isa: one keyswitch launch under torch.profiler: {n_dev} device events, device busy "
+          f"{busy_us / 1e3:.3f} ms of the {traced_s * 1e3:.2f} ms launch profiled "
+          f"(share {busy_us / 1e3 / (traced_s * 1e3):.4f}; of the unprofiled {ks_ms:.2f} ms: "
+          f"{busy_us / 1e3 / ks_ms:.4f}); fused he_torch.rotate of the batch of {B} (median of "
+          f"3 after warm-up): {fused_s * 1e3:.2f} ms ({fused_s * 1e3 / B:.3f} ms per "
+          f"ciphertext) against {ks_ms:.2f} ms per ciphertext through the ISA, on {card}",
+          flush=True)
+    return launches
+
+
 def main():
     card = phase_device()
     import torch
@@ -721,7 +958,8 @@ def main():
         results = phase_kernels(card, dev)
         paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results),
                  "shard": phase_shard(card, dev, results),
-                 "multiply": phase_multiply(card, dev, results)}
+                 "multiply": phase_multiply(card, dev, results),
+                 "isa": phase_isa(card, dev, results)}
     except SystemExit:
         raise
     except Exception:
@@ -746,6 +984,8 @@ def main():
                             None, f"fwd D=1 d=0 nb={SHARD_NB}"),
         "ntt_grid": ("aloha_tpu_torch/csrc/ntt_grid.cu", "aloha_tpu/ops/ntt_pallas.py:378",
                      None, f"fwd q0 nb={GRID_NB} n={n}"),
+        "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102",
+                None, f"q0 nb=1 e={pow(3, 2, 2 * n)}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():

@@ -18,7 +18,7 @@ from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
-from aloha_tpu_torch.ops import ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
+from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -239,8 +239,88 @@ def test_multiply_chain_on_card_matches_he_np(dev):
     assert np.array_equal(cv.to_u64(got[0]), want_rs.a)
     assert np.array_equal(cv.to_u64(got[1]), want_rs.b)
     before = ntt_pallas.transform.launches
+    before_aut = aut.automorphism.launches
     rot = ht.rotate_per_transform(relin, 1, cv.ksk_from_np(rk, CFG, dev), CFG)
     assert ntt_pallas.transform.launches == before + 3 * L + 2
+    assert aut.automorphism.launches == before_aut + 2 * L  # no index_select automorphism
     want_rot = he_np.rotate(he_np.Ciphertext(a=want.a.copy(), b=want.b.copy()), 1, rk, CFG)
     assert np.array_equal(cv.to_u64(rot[0]), want_rot.a)
     assert np.array_equal(cv.to_u64(rot[1]), want_rot.b)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2])
+@pytest.mark.parametrize("n", [128, 1024, 8192])
+def test_aut_kernel_matches_plain(dev, n, m):
+    """The automorphism kernel under q0, q1 and P at n = 128, 1024, 8192 for
+    the rotation exponents 3^(2^k) and 2n - 1; one row holds 0 and q (the
+    literal q - x turns them into q and 0)."""
+    q = CFG.moduli[m]
+    x = np.random.default_rng(50 + m).integers(0, q, size=(2, 3, n), dtype=np.uint64)
+    x[1, 1, : n // 2] = 0
+    x[1, 1, n // 2 :] = np.uint64(q)
+    x = cv.from_u64(x, dev)
+    for e in [pow(3, 1 << k, 2 * n) for k in range(12)] + [2 * n - 1]:
+        before = aut.automorphism.launches
+        got = aut.automorphism(x, e, q)
+        torch.cuda.synchronize()
+        assert aut.automorphism.launches == before + 1
+        assert torch.equal(got, aut.automorphism_plain(x, e, q)), e
+
+
+def test_isa_device_on_card_matches_cpu(dev):
+    """The ISA key-switch, mul_plain and hom_add through AlohaDevice on the
+    card equal the same launches on CPU tensors; the key-switch launches the
+    NTT and automorphism kernels."""
+    from aloha_tpu_torch.runtime.device import AlohaDevice
+
+    rng = np.random.default_rng(60)
+    ct = np.concatenate([rng.integers(0, CFG.moduli[i % L], N, dtype=np.uint64)
+                         for i in range(2 * L)])
+    pt = np.concatenate([rng.integers(0, CFG.moduli[i], N, dtype=np.uint64) for i in range(L)])
+    key = _key(rng, dev)
+    outs = []
+    for d in (AlohaDevice(CFG, device=dev), AlohaDevice(CFG, device="cpu")):
+        d.load_cipher(0, ct)
+        d.load_poly(256, pt)
+        d.dma_load_ksk(key, row=d.rotation_ksk_ptr(2))
+        ntt0, aut0 = ntt_stream.transform.launches, aut.automorphism.launches
+        d.run_rotate(dest=512, src=0, step=2)
+        d.run_mul_plain(dest=768, src_ct=512, src_pt=256)
+        d.run_hom_add(dest=1024, src1=768, src2=0)
+        if d.device.type == "cuda":
+            torch.cuda.synchronize()
+            # vntt: L(L+1) raised digits, L of aut(a), 2L corrections; vintt: 2L + 2
+            assert ntt_stream.transform.launches - ntt0 == L * L + 6 * L + 2
+            assert aut.automorphism.launches - aut0 == 2 * L
+        outs.append([d.store_cipher(r) for r in (512, 768, 1024)])
+    for got, want in zip(*outs):
+        assert np.array_equal(got, want)
+
+
+def test_isa_aut_output_at_q_feeds_the_ntt_kernel(dev):
+    """vaut on the card turns 0 into q (the literal q - x), and the next
+    vntt (csrc/ntt.cu) takes those words: equal to the replay on CPU
+    tensors."""
+    from aloha_tpu_torch.isa import programs
+    from aloha_tpu_torch.isa.interp import LaunchArgs, VectorProcessor
+    from aloha_tpu_torch.torch_backend import TorchBackend
+
+    q, pr = CFG.moduli[0], N // 128
+    x = np.random.default_rng(61).integers(0, q, size=N, dtype=np.uint64)
+    x[::3] = 0
+    x[1::3] = np.uint64(q)
+    spm = np.zeros((4 * pr, 128), dtype=np.uint64)
+    spm[:pr] = x.reshape(pr, 128)
+    a = programs.Asm()
+    a.vsetvl(N * 64).vsetq(q).vle(0, 0, 0).vaut(2, 0, 0).vntt(4, 2)
+    a.vse(2, 2, 0).vse(4, 2, N * 8).vbreak()
+    args = LaunchArgs(rslt=pr, step=pow(3, 2, 2 * N))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        be = TorchBackend(d)
+        ntt0, aut0 = ntt_stream.transform.launches, aut.automorphism.launches
+        outs.append(be.unwrap(VectorProcessor(CFG, be).run(a.prog, be.wrap(spm), None, args)))
+        assert (ntt_stream.transform.launches - ntt0, aut.automorphism.launches - aut0) == (
+            (1, 1) if d.type == "cuda" else (0, 0))
+    assert np.array_equal(outs[0], outs[1])
+    assert (outs[0][pr : 2 * pr] == np.uint64(q)).sum() > N // 4

@@ -25,7 +25,7 @@ import torch
 from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
-from aloha_tpu_torch.ops import dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
+from aloha_tpu_torch.ops import aut, dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 
 torch.set_num_threads(2)
 
@@ -63,14 +63,18 @@ def test_import_leaves_jax_out():
         "for name in names: importlib.import_module(name)\n"
         "assert {'aloha_tpu_torch.ops.ntt_mxu', 'aloha_tpu_torch.bench', 'aloha_tpu_torch.keys',"
         " 'aloha_tpu_torch.parallel.dryrun', 'aloha_tpu_torch.ops.ntt_pallas',"
-        " 'aloha_tpu_torch.encoder_torch', 'aloha_tpu_torch.encoder_hw'} <= set(names)\n"
+        " 'aloha_tpu_torch.encoder_torch', 'aloha_tpu_torch.encoder_hw', 'aloha_tpu_torch.ops.aut',"
+        " 'aloha_tpu_torch.isa.encoding', 'aloha_tpu_torch.isa.programs',"
+        " 'aloha_tpu_torch.isa.interp', 'aloha_tpu_torch.torch_backend',"
+        " 'aloha_tpu_torch.runtime.device', 'aloha_tpu_torch.runtime.host',"
+        " 'aloha_tpu_torch.trace_db', 'aloha_tpu_torch.profiling'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
     res = _run(["-c", code], ROOT)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 19
+    assert int(count) >= 30
     assert loaded == "[]"
     files = sorted((ROOT / "aloha_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
@@ -96,7 +100,8 @@ def test_library_is_named_by_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
-                                                 "modarith.cuh"}
+                                                 "aut.cu", "modarith.cuh"}
+    assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut"}
 
 
 def test_dispatch_routes_by_device():
@@ -121,6 +126,24 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     with pytest.raises(ValueError):
         ks_kernel.ks_head(torch.zeros((2, 1, 8192), dtype=torch.int64, device="meta"),
                           None, CFG)
+    with pytest.raises(ValueError):
+        aut.automorphism(x, 3, CFG.moduli[0])
+
+
+def test_device_entry_points_default_to_the_card():
+    """AlohaDevice (and so HostRunner) and the ISA backend put their
+    memories on `cuda` unless the caller names another device; without a
+    card that raises instead of falling back to the CPU."""
+    from aloha_tpu_torch.runtime.device import AlohaDevice
+    from aloha_tpu_torch.torch_backend import TorchBackend
+
+    assert TorchBackend().device == torch.device("cuda")
+    if torch.cuda.is_available():
+        assert AlohaDevice().spm.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            AlohaDevice()
+    assert AlohaDevice(device="cpu", spm_rows=8, ksk_rows=8).spm.device == CPU
 
 
 def test_check_rejects_bad_operands():
