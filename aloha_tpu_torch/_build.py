@@ -36,6 +36,9 @@ SIGNATURES = {
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
     "aloha_ntt_mxu": [_I] + [_P] * 9 + [_I] * 5 + [_P],
     "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_P],
+    "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
+    "aloha_probe_stage_modes": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
+    "aloha_probe_lane_stages": [_I] + [_P] * 4 + [_U] + [_I] * 4 + [_P],
 }
 
 

@@ -77,6 +77,42 @@ def ksk_from_np(ksk, cfg: HEConfig, device) -> torch.Tensor:
     return from_u64(k.reshape(2 * L * (L + 1), cfg.n), device)
 
 
+def tables_from_planes(planes, q: int, inverse: bool, device):
+    """The JAX package's per-element twiddle planes -> the port's compact
+    (w, wshoup) int64 tensors (n,), as `ntt_torch.twiddles_np` makes them.
+
+    `planes` is `ntt_pallas._tables_np`'s four (w_lo, w_hi, s_lo, s_hi) or
+    `ntt_stream._tables6_np`'s six (w_lo, w_hi and the four 16-bit limbs of
+    the Shoup companion), each (logn, rows, 128) uint32.  Stage s's plane
+    holds at element i the twiddle of i's butterfly group: compact entry
+    2^s + (i >> (logn - s)) forward, n/2^(s+1) + (i >> (s+1)) inverse.
+    Entry 0, which no stage reads, is root^0 = 1 and floor(2^64 / q).
+    Raises when a group's elements disagree."""
+    p = [np.asarray(x, dtype=np.uint32).astype(np.uint64) for x in planes]
+    if len(p) == 4:
+        s = p[2] | (p[3] << np.uint64(32))
+    elif len(p) == 6:
+        s = p[2] | (p[3] << np.uint64(16)) | (p[4] << np.uint64(32)) | (p[5] << np.uint64(48))
+    else:
+        raise ValueError(f"{len(p)} planes: 4 (_tables_np) or 6 (_tables6_np) expected")
+    logn = p[0].shape[0]
+    n = 1 << logn
+    wp = (p[0] | (p[1] << np.uint64(32))).reshape(logn, -1)
+    sp = s.reshape(logn, -1)
+    if wp.shape[1] != n:
+        raise ValueError(f"planes of {wp.shape[1]} elements for {logn} stages: 2^{logn} expected")
+    w = np.zeros(n, dtype=np.uint64)
+    ws = np.zeros(n, dtype=np.uint64)
+    w[0], ws[0] = 1, (1 << 64) // q
+    i = np.arange(n)
+    for st in range(logn):
+        idx = (n >> (st + 1)) + (i >> (st + 1)) if inverse else (1 << st) + (i >> (logn - st))
+        w[idx], ws[idx] = wp[st], sp[st]
+        if not (np.array_equal(w[idx], wp[st]) and np.array_equal(ws[idx], sp[st])):
+            raise ValueError(f"stage {st}: a butterfly group's elements hold different twiddles")
+    return from_u64(w, device), from_u64(ws, device)
+
+
 def prepared_from_planes(planes, cfg: HEConfig, device):
     """The JAX `ks_kernel.prepare_ksk` planes (klo, khi, s0, s1, s2, s3),
     each (2L(L+1), rows, 128) uint32 with s0..s3 the 16-bit limbs of the

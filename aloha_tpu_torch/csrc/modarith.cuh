@@ -39,6 +39,30 @@ __device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 ws, u64 q) {
   return x * w - t * q;
 }
 
+// Low 64 bits of t * (1 + 2^S1 + 2^S2 + 2^S3) as shift-adds: t*q for a sparse
+// modulus with those four set bits (q0 = 2^59 + 2^36 + 2^32 + 1: <32, 36, 59>).
+template <int S1, int S2, int S3>
+__device__ __forceinline__ u64 mul_sparse_lo(u64 t) {
+  return t + (t << S1) + (t << S2) + (t << S3);
+}
+
+// shoup_mul with t*q formed by mul_sparse_lo: the same word for that q.
+template <int S1, int S2, int S3>
+__device__ __forceinline__ u64 shoup_mul_sparse(u64 x, u64 w, u64 ws) {
+  return x * w - mul_sparse_lo<S1, S2, S3>(__umul64hi(x, ws));
+}
+
+// The two 32-bit halves of a word exchanged.
+__device__ __forceinline__ u64 swap32(u64 x) { return (x << 32) | (x >> 32); }
+
+// The 32-bit halves of a and b added separately, each wrapping mod 2^32
+// (the TPU's u32 lo/hi planes added with no carry between them).
+__device__ __forceinline__ u64 add32x2(u64 a, u64 b) {
+  const unsigned lo = (unsigned)a + (unsigned)b;
+  const unsigned hi = (unsigned)(a >> 32) + (unsigned)(b >> 32);
+  return ((u64)hi << 32) | lo;
+}
+
 // The RTL Barrett chain (reference: src/vp/vxu/modmul.sv:145-232) for
 // inputs a, b < q < 2^w; iq = floor(2^(2w+1) / q).  Equal to exact a*b mod q.
 __device__ __forceinline__ u64 barrett(u64 a, u64 b, u64 q, u64 iq, int w) {

@@ -70,7 +70,9 @@ class VectorProcessor:
         trace: Optional[list] = None,
     ):
         """Execute until vbreak; returns the updated SPM array.  The
-        caller's `spm` is left as it was (the backend snapshots it).
+        caller's `spm` is left as it was (the backend snapshots it).  A
+        transform fed words outside its window raises ValueError here,
+        after the last instruction (`TorchBackend.end_launch`).
 
         `program` is a list of Instr; when launched from a full instruction
         RAM image, slice it at args.pc first (the fetch FSM's PC counter,
@@ -152,6 +154,7 @@ class VectorProcessor:
                 trace.append(
                     (args.pc + pc_off, instr, be.unwrap(vregs[instr.vd]))
                 )
+        be.end_launch()
         return spm
 
     def _alu(self, instr: Instr, vregs, q):

@@ -10,8 +10,12 @@ three of them stays below 2^62, clear of the sign bit.
 
 Every function mirrors `aloha_tpu.rns_np` word for word, including the
 RTL Barrett chain (reference: src/vp/vxu/modmul.sv:145-232) and the ALU's
-one-subtract input laziness (reference: src/vp/vxu/modalu.sv:44-46), so
-non-canonical inputs below 2^60 give the NumPy oracle's words too.
+one-subtract input laziness (reference: src/vp/vxu/modalu.sv:44-46).  The
+ALU ops (`lazy_reduce`, `addmod`, `submod`, `mulmod`, `modred`) give the
+NumPy oracle's word for every uint64 word, as the ISA's DMA can deliver
+them: compares are unsigned on the int64 bit view (`uge`), adds and
+subtracts wrap mod 2^64 as NumPy's do, and the Barrett chain keeps the
+RTL's 64-bit wires.
 """
 
 from __future__ import annotations
@@ -22,6 +26,14 @@ from aloha_tpu_torch.config import MOD_WIDTH, barrett_iq
 
 _B = 30
 _M = (1 << _B) - 1
+_SIGN = -(1 << 63)
+
+
+def uge(a, b):
+    """Unsigned a >= b of uint64 words held as int64 bit views; a Python
+    int operand must lie in [0, 2^63).  Biasing both sides by 2^63 (the
+    xor with the sign bit) maps unsigned order onto signed order."""
+    return (a ^ _SIGN) >= (b ^ _SIGN)
 
 
 def _limbs(x):
@@ -47,7 +59,8 @@ def _mul(xs, ys):
 
 
 def _bits(limbs, lo: int, width: int):
-    """Bits [lo, lo + width) of a normalised limb list, width <= 62.
+    """Bits [lo, lo + width) of a normalised limb list, width <= 64 (a
+    64-bit field comes back as its int64 bit view).
 
     The limbs occupy disjoint bit fields, so their shifted pieces add
     without carries."""
@@ -60,25 +73,38 @@ def _bits(limbs, lo: int, width: int):
             out = out + (v >> -pos)
         else:
             out = out + ((v & ((1 << (width - pos)) - 1)) << pos)
-    return out & ((1 << width) - 1)
+    return out if width == 64 else out & ((1 << width) - 1)
+
+
+def mul_lo64(a, b):
+    """Low 64 bits of the product of two uint64 words (int64 bit views or
+    Python ints in [0, 2^64)): NumPy's wrapping uint64 multiply."""
+    return _bits(_mul(_limbs(a), _limbs(b)), 0, 64)
+
+
+def mul_hi64(a, b):
+    """High 64 bits of the 128-bit product of two uint64 words (`__umul64hi`)."""
+    return _bits(_mul(_limbs(a), _limbs(b)), 64, 64)
 
 
 def lazy_reduce(a, q: int):
-    """One conditional subtract x >= q -> x - q (modalu.sv:44-46)."""
-    return torch.where(a >= q, a - q, a)
+    """One conditional subtract x >= q -> x - q (modalu.sv:44-46), unsigned."""
+    return torch.where(uge(a, q), a - q, a)
 
 
 def addmod(a, b, q: int):
-    """(a + b) mod q after the ALU's input laziness; inputs < 2q."""
+    """(a + b) mod q after the ALU's input laziness; inputs < 2q.  Any
+    other uint64 words give rns_np.addmod's word (the sum wraps)."""
     s = lazy_reduce(a, q) + lazy_reduce(b, q)
-    return torch.where(s >= q, s - q, s)
+    return torch.where(uge(s, q), s - q, s)
 
 
 def submod(a, b, q: int):
-    """(a - b) mod q after the ALU's input laziness; inputs < 2q."""
+    """(a - b) mod q after the ALU's input laziness; inputs < 2q.  Any
+    other uint64 words give rns_np.submod's word (the difference wraps)."""
     a = lazy_reduce(a, q)
     b = lazy_reduce(b, q)
-    return torch.where(a >= b, a - b, q + a - b)
+    return torch.where(uge(a, b), a - b, q + a - b)
 
 
 def halfmod(a, q: int):
@@ -87,20 +113,20 @@ def halfmod(a, q: int):
 
 
 def barrett(a, b, q: int, w: int = MOD_WIDTH):
-    """The literal RTL Barrett chain (modmul.sv:145-232), inputs < 2^w:
+    """The literal RTL Barrett chain (modmul.sv:145-232) on any uint64 words:
 
-        prod  = a * b
-        mid   = (prod >> (w-2)) * iq,   iq = floor(2^(2w+1) / q)
-        estim = (mid >> (w+3)) * q
+        prod  = a * b                            128-bit
+        mid   = (prod >> (w-2))[63:0] * iq,      iq = floor(2^(2w+1) / q)
+        estim = (mid >> (w+3))[63:0] * q
         diff  = (prod - estim) mod 2^(w+1)
         res   = diff - q if diff >= q else diff
 
-    With w <= 60 the 64-bit truncations of the RTL wires never bite
-    (prod >> (w-2) < 2^62, mid >> (w+3) < 2^63), so each wire is exact."""
+    Both shifted wires are cut to 64 bits as the RTL (and rns_np._barrett)
+    cuts them; for inputs below 2^w the cuts never bite and res = a*b mod q."""
     iq = barrett_iq(q, w)
     prod = _mul(_limbs(a), _limbs(b))
-    ps = _bits(prod, w - 2, 62)
-    ms = _bits(_mul(_limbs(ps), _limbs(iq)), w + 3, 62)
+    ps = _bits(prod, w - 2, 64)
+    ms = _bits(_mul(_limbs(ps), _limbs(iq)), w + 3, 64)
     est = _bits(_mul(_limbs(ms), _limbs(q)), 0, w + 1)
     mask = (1 << (w + 1)) - 1
     diff = (_bits(prod, 0, w + 1) + (1 << (w + 1)) - est) & mask
@@ -108,7 +134,8 @@ def barrett(a, b, q: int, w: int = MOD_WIDTH):
 
 
 def mulmod(a, b, q: int, w: int = MOD_WIDTH):
-    """Exact a*b mod q for inputs < 2q: lazy reduce, then Barrett."""
+    """Exact a*b mod q for inputs < 2q: lazy reduce, then Barrett (the
+    oracle's word for any uint64 inputs)."""
     return barrett(lazy_reduce(a, q), lazy_reduce(b, q), q, w)
 
 

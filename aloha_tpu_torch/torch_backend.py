@@ -12,8 +12,17 @@ The TPU path jits a whole program into one XLA executable
 (`jax_backend.make_executable`).  Here `make_executable` returns a cached
 callable that replays the decoded program eagerly: one launch per
 transform and a chain of small elementwise launches per ALU instruction.
-The ALU's operands must be below 2^60, the width of the datapath
-(`rns_torch`); the 60-bit moduli keep every residue there.
+
+Words outside the moduli's range reach a launch through DMA.  The ALU
+gives the NumPy oracle's word for every uint64 operand (`rns_torch`); an
+immediate must fit the 60-bit datapath.  The transforms take the words on
+which the oracle computes the exact transform of the reduced word: below
+4q forward (the Harvey window of csrc/ntt.cu) and below 2q inverse.  On
+any other word the oracle's output is not that transform (forward: not
+even canonical from some words below 2^63 on), and no cheap pass gives
+it, so the launch raises `ValueError`.  The check makes no host sync per
+instruction: each transform ORs an out-of-window flag into a tensor on
+the device, and `end_launch` reads it once per launch.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ class TorchBackend:
 
     def __init__(self, device=None):
         self.device = torch.device("cuda" if device is None else device)
+        self._out_of_window = None  # a bool tensor once a transform ran this launch
 
     def wrap(self, arr):
         """uint64 array (or int64 tensor of the same bits) -> int64 tensor."""
@@ -93,10 +103,18 @@ class TorchBackend:
         return rt.lazy_reduce(a, q)
 
     # transforms
+    def _flag_window(self, a, bound: int):
+        """OR (any word of a >= bound, unsigned) into the launch's flag,
+        on a's device: no host sync."""
+        bad = rt.uge(a, bound).any()
+        self._out_of_window = bad if self._out_of_window is None else self._out_of_window | bad
+
     def ntt(self, a, q, psi):
+        self._flag_window(a, 4 * q)
         return ntt_stream.transform(a.reshape(1, 1, -1), (q,), (psi,), False).reshape(a.shape)
 
     def intt(self, a, q, ipsi):
+        self._flag_window(a, 2 * q)
         return ntt_stream.transform(a.reshape(1, 1, -1), (q,), (ipsi,), True).reshape(a.shape)
 
     def automorphism(self, a, step, q):
@@ -109,7 +127,19 @@ class TorchBackend:
     def begin_launch(self, mem):
         """Copy device memory once per launch; write_rows then updates the
         copy in place, so the caller's tensor stays as it was."""
+        self._out_of_window = None
         return mem.clone()
+
+    def end_launch(self):
+        """Raise if a transform of this launch got a word outside its window
+        (>= 4q forward, >= 2q inverse): the one host sync of the check."""
+        flag, self._out_of_window = self._out_of_window, None
+        if flag is not None and bool(flag):
+            raise ValueError(
+                "vntt/vintt operand outside the transform's window (a word >= 4q "
+                "forward or >= 2q inverse): the reference's output there is not the "
+                "transform of the reduced word"
+            )
 
     def read_rows(self, mem, row, nrows):
         return mem[row : row + nrows].reshape(-1)
@@ -130,14 +160,15 @@ def _cached_executable(cfg: HEConfig, program_digest, pc, src0, src1, rslt, step
     return run
 
 
-def make_executable(cfg: HEConfig, program, args: LaunchArgs):
+def make_executable(cfg: HEConfig, program, args: LaunchArgs, program_key=None):
     """One (program, launch CSRs) pair as a callable `run(spm, ksk_mem)`
     that returns the updated SPM (the caller's stays as it was).
 
     Cached by the program's *contents* (instruction encodings) and the
     CSRs, as `jax_backend.make_executable` is, so two different programs
-    can never share an executable.  The callable replays eagerly on the
-    device of the SPM it is given; no graph is captured."""
+    can never share an executable; `program_key` is accepted and ignored,
+    as there.  The callable replays eagerly on the device of the SPM it is
+    given; no graph is captured."""
     digest = tuple(i.encode() for i in program)
     return _cached_executable(cfg, digest, args.pc, args.src0, args.src1, args.rslt,
                               args.step, args.ksk_ptr)

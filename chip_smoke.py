@@ -54,7 +54,16 @@ Phases, each printing its own line; any failure exits nonzero:
      the card, ciphertext 0 against the replay on CPU tensors, a key-switch
      .tdb trace verified against the CPU, the rotations decrypting within
      1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
-     per launch kind, and one profiled key-switch beside the fused rotate.
+     per launch kind, and one profiled key-switch beside the fused rotate;
+  9. probes: the four NTT cost probes (aloha_tpu_torch.probes; csrc/
+     probe_ops.cu, csrc/probe_stages.cu), each kernel in every variant or
+     mode (op_probe v0-v14, the forward transforms, stream_prof's three
+     modes, stream_prof2's four modes at 2 and 13 stages) against its plain
+     version (torch.equal) at the main path's shape, nb=256, and its lower
+     REPS, then at nb=8, 3 repetitions (timed); then the probes' own
+     measurement at nb=256: the marginal ns per polynomial per repetition
+     of each, beside its bound (the step's INT32 instructions over the
+     integer issue peak), with all four kernels launched.
 The line before the last is a JSON object of the kernels (launches summed
 over the main paths, and per path; each kernel's bound from this run's
 shapes); the last line is {"ok": true, "device": {...}}.
@@ -77,6 +86,7 @@ MUL_BATCHES = 3  # batches of B cleartext pairs on the multiply path
 GRID_NB = 64  # polynomials of the grid-kernel cases
 RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
+PROBE_NB, PROBE_REPS = 8, 3  # polynomials and repetitions of the probes' timed comparisons
 
 
 def fail(msg: str):
@@ -134,7 +144,12 @@ def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
 
 # ---------------------------------------------------------------- bounds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
-INT32_LANES = 132 * 64  # SMs x INT32 lanes each
+# Integer issue peak: 132 SMs x 4 schedulers x 32 lanes, each dispatching one
+# warp instruction per clock (IMAD to the FMA pipe, the rest to the ALU pipe),
+# the rate of the H100 data sheet's 67 TFLOP/s float32 peak at one operation per FMA.
+# The ALU pipe's 64 lanes alone are no ceiling: the probes' statT lane stages
+# ran 8 % faster than their instructions over 132 x 64 lanes allow.
+INT32_LANES = 132 * 128
 #: peak operations/s by kind; "int32" is set from the card's max SM clock
 PEAK = {"int8": 1.979e15}  # dense int8 tensor-core peak (one MAC = two operations)
 # 32-bit integer instructions of the kernels' arithmetic (csrc/modarith.cuh),
@@ -222,10 +237,8 @@ def max_sm_clock_mhz() -> float:
     return float(smi.stdout.strip().splitlines()[0])
 
 
-def check(results: dict, card: str, kernel: str, label: str, run, run_plain, work,
-          warmup: int = 3, iters: int = 15):
-    """Fail unless run() is torch.equal to run_plain(); time both and give
-    the bound of `work` (bytes, operations, kind) beside them."""
+def compare(kernel: str, label: str, run, run_plain) -> int:
+    """Fail unless run() is torch.equal to run_plain(); the max abs error."""
     import torch
 
     got, want = run(), run_plain()
@@ -233,6 +246,14 @@ def check(results: dict, card: str, kernel: str, label: str, run, run_plain, wor
     err = int((got - want).abs().max().item()) if got.numel() else 0
     if not torch.equal(got, want):
         fail(f"{kernel} {label}: kernel differs from plain (max_abs_err={err})")
+    return err
+
+
+def check(results: dict, card: str, kernel: str, label: str, run, run_plain, work,
+          warmup: int = 3, iters: int = 15):
+    """Fail unless run() is torch.equal to run_plain(); time both and give
+    the bound of `work` (bytes, operations, kind) beside them."""
+    err = compare(kernel, label, run, run_plain)
     k_us = time_us(run, warmup, iters)
     p_us = time_us(run_plain, warmup, iters)
     b_us, b_by = bound(work)
@@ -944,6 +965,84 @@ def phase_isa(card: str, dev, results: dict):
     return launches
 
 
+def probe_work(nb: int, reps: int, ops_per_rep: int):
+    """One probe launch: nb polynomials read and written once, the (w, wshoup)
+    tables read once, `reps` steps of `ops_per_rep` INT32 instructions each."""
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+
+    return 2 * nb * CFG.n * 8 + 2 * CFG.n * 8, nb * reps * ops_per_rep, "int32"
+
+
+def phase_probes(card: str, dev, results: dict):
+    """The four NTT cost probes: every variant and mode against its plain
+    version, then the probes' own marginal timings (the main path)."""
+    from aloha_tpu_torch.probes import common, op_probe, stream_prof, stream_prof2, stream_prof3
+
+    # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition, timed REPS)
+    cases = [("probe_ops", v, lambda x, r, v=v: op_probe.probe_ops(x, v, r),
+              lambda x, r, v=v: op_probe.probe_ops_plain(x, v, r), op_probe.OPS[v],
+              op_probe.REPS) for v in op_probe.VARIANTS]
+    cases.append(("probe_fwd_reps", "fwd", stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain,
+                  stream_prof3.OPS, stream_prof3.REPS))
+    cases += [("probe_stage_modes", m, lambda x, r, m=m: stream_prof.stage_modes(x, m, r),
+               lambda x, r, m=m: stream_prof.stage_modes_plain(x, m, r), stream_prof.OPS[m],
+               stream_prof.REPS) for m in stream_prof.MODES]
+    for case in stream_prof2.CASES:
+        m, k = stream_prof2.parse(case)
+        cases.append(("probe_lane_stages", case,
+                      lambda x, r, m=m, k=k: stream_prof2.lane_stages(x, m, k, r),
+                      lambda x, r, m=m, k=k: stream_prof2.lane_stages_plain(x, m, k, r),
+                      stream_prof2.ops(m, k), stream_prof2.REPS))
+    # the main path's shape (NB_TIME polynomials) at its lower REPS: compared,
+    # not timed (the plain versions run a few hundred ms there)
+    t0, nb = time.perf_counter(), common.NB_TIME
+    xm = common.resident_data(nb, dev)
+    for kernel, label, run, plain, _, reps in cases:
+        r = reps[0]
+        err = compare(kernel, f"{label} nb={nb} reps={r}", lambda: run(xm, r), lambda: plain(xm, r))
+        results.setdefault(kernel, []).append((f"{label} nb={nb} reps={r}", err))
+    print(f"probes: {len(cases)} cases equal at nb={nb}, their lower REPS, in "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    del xm
+    x, R = common.resident_data(PROBE_NB, dev), PROBE_REPS
+    for kernel, label, run, plain, ops, _ in cases:
+        check(results, card, kernel, f"{label} nb={PROBE_NB} reps={R}", lambda: run(x, R),
+              lambda: plain(x, R), probe_work(PROBE_NB, R, ops), 1, 3)
+
+    # the main path: counts start at 0 here
+    counters = {"probe_ops": op_probe.probe_ops, "probe_fwd_reps": stream_prof3.fwd_reps,
+                "probe_stage_modes": stream_prof.stage_modes,
+                "probe_lane_stages": stream_prof2.lane_stages}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    measured = {
+        "probe_ops": [(v, ns, lo, hi, op_probe.REPS, op_probe.OPS[v])
+                      for v, ns, lo, hi in op_probe.measure(op_probe.VARIANTS, dev)],
+        "probe_fwd_reps": [("fwd", *stream_prof3.measure(dev), stream_prof3.REPS,
+                            stream_prof3.OPS)],
+        "probe_stage_modes": [(m, ns, lo, hi, stream_prof.REPS, stream_prof.OPS[m])
+                              for m, ns, lo, hi in stream_prof.measure(stream_prof.MODES, dev)],
+        "probe_lane_stages": [(c, ns, lo, hi, stream_prof2.REPS,
+                               stream_prof2.ops(*stream_prof2.parse(c)))
+                              for c, ns, lo, hi in stream_prof2.measure(stream_prof2.CASES, dev)],
+    }
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for kernel, rows in measured.items():
+        for label, ns, t_lo, t_hi, reps, ops in rows:
+            bound_ns = ops / PEAK["int32"] * 1e9
+            print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
+                  f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
+                  f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME} on {card}", flush=True)
+            results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (ns, bound_ns)
+    print(f"probes: measured in {time.perf_counter() - t0:.1f} s, launches={launches} on {card}",
+          flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the probes")
+    return launches
+
+
 def main():
     card = phase_device()
     import torch
@@ -952,14 +1051,15 @@ def main():
         clock = max_sm_clock_mhz()
         PEAK["int32"] = INT32_LANES * clock * 1e6
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
-              f"INT32 {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
+              f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results),
                  "shard": phase_shard(card, dev, results),
                  "multiply": phase_multiply(card, dev, results),
-                 "isa": phase_isa(card, dev, results)}
+                 "isa": phase_isa(card, dev, results),
+                 "probes": phase_probes(card, dev, results)}
     except SystemExit:
         raise
     except Exception:
@@ -986,6 +1086,15 @@ def main():
                      None, f"fwd q0 nb={GRID_NB} n={n}"),
         "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102",
                 None, f"q0 nb=1 e={pow(3, 2, 2 * n)}"),
+        "probe_ops": ("aloha_tpu_torch/csrc/probe_ops.cu", "tools/op_probe.py:263", None,
+                      f"v0 nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_fwd_reps": ("aloha_tpu_torch/csrc/probe_stages.cu", "tools/stream_prof3.py:29",
+                           None, f"fwd nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_stage_modes": ("aloha_tpu_torch/csrc/probe_stages.cu", "tools/stream_prof.py:81",
+                              None, f"full nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_lane_stages": ("aloha_tpu_torch/csrc/probe_stages.cu",
+                              "tools/stream_prof2.py:64", None,
+                              f"full-13 nb={PROBE_NB} reps={PROBE_REPS}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():
@@ -1000,6 +1109,9 @@ def main():
                  "library_ms": None, "shape": main_case}
         if also:
             entry["also_replaces"] = also
+        if name in results.get("marginal", {}):
+            entry["marginal_ns"] = {k: v[0] for k, v in results["marginal"][name].items()}
+            entry["bound_ns"] = {k: v[1] for k, v in results["marginal"][name].items()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
+from aloha_tpu_torch.probes import common as probe_common
+from aloha_tpu_torch.probes import op_probe, stream_prof, stream_prof2, stream_prof3
 
 pytestmark = pytest.mark.cuda
 
@@ -324,3 +326,72 @@ def test_isa_aut_output_at_q_feeds_the_ntt_kernel(dev):
             (1, 1) if d.type == "cuda" else (0, 0))
     assert np.array_equal(outs[0], outs[1])
     assert (outs[0][pr : 2 * pr] == np.uint64(q)).sum() > N // 4
+
+
+# ------------------------------------------------------------------ probes
+PROBE_CASES = ([("ops", v, None) for v in op_probe.VARIANTS] + [("fwd_reps", None, None)]
+               + [("stage_modes", m, None) for m in stream_prof.MODES]
+               + [("lane_stages", m, k) for m in stream_prof2.MODES for k in stream_prof2.NSTAGES])
+
+
+@pytest.mark.parametrize("kind,mode,nstages", PROBE_CASES)
+def test_probe_kernels_match_plain(dev, kind, mode, nstages):
+    """Each probe kernel (csrc/probe_ops.cu, csrc/probe_stages.cu) in every
+    variant and mode equals its plain version at nb = 8, REPS 1 and 3, and
+    at the measured shape (nb = NB_TIME) at the module's lower REPS."""
+    fn, plain, args, timed_reps = {
+        "ops": (op_probe.probe_ops, op_probe.probe_ops_plain, (mode,), op_probe.REPS),
+        "fwd_reps": (stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain, (), stream_prof3.REPS),
+        "stage_modes": (stream_prof.stage_modes, stream_prof.stage_modes_plain, (mode,),
+                        stream_prof.REPS),
+        "lane_stages": (stream_prof2.lane_stages, stream_prof2.lane_stages_plain,
+                        (mode, nstages), stream_prof2.REPS),
+    }[kind]
+    for nb, reps in ((8, 1), (8, 3), (probe_common.NB_TIME, timed_reps[0])):
+        x = probe_common.resident_data(nb, dev)
+        before = fn.launches
+        got = fn(x, *args, reps)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, plain(x, *args, reps)), (nb, reps)
+
+
+#: (program, word range of the input, whether the transform takes it)
+WINDOW_CASES = [("encode_post", (2, 4), True), ("encode_post", (4, None), False),
+                ("encode_post", (None, None), False), ("rotate", (0, 2), True),
+                ("rotate", (2, 4), False)]
+
+
+@pytest.mark.parametrize("program,span,ok", WINDOW_CASES)
+def test_isa_transform_windows_on_card_match_cpu(dev, program, span, ok):
+    """vntt (encode_post) and vintt (the key-switch's first transform) on
+    AlohaDevice(device="cuda") raise on exactly the words on which the
+    replay on CPU tensors raises (forward from 4q, including words >= 2^63;
+    inverse from 2q), and give its words inside the windows.  Ranges in
+    multiples of q; (None, None) is [2^63, 2^64)."""
+    from aloha_tpu_torch.runtime.device import AlohaDevice
+
+    rng = np.random.default_rng(70)
+    ct = np.concatenate([rng.integers(0, CFG.moduli[i % L], N, dtype=np.uint64)
+                         for i in range(2 * L)])
+    q = CFG.moduli[0]
+    lo, hi = span
+    words = (rng.integers(1 << 63, 1 << 64, N, dtype=np.uint64) if lo is None else
+             rng.integers(lo * q, (hi * q) if hi else 1 << 63, N, dtype=np.uint64))
+    ct[(L if program == "rotate" else 0) * N:][:N] = words  # limb 0 of b, or of the plaintext
+    key = _key(rng, dev)
+    outs = []
+    for d in (AlohaDevice(CFG, device=dev, spm_rows=512, ksk_rows=768),
+              AlohaDevice(CFG, device="cpu", spm_rows=512, ksk_rows=768)):
+        d.load_cipher(0, ct)
+        d.dma_load_ksk(key, row=d.rotation_ksk_ptr(2))
+        run = ((lambda: d.run_rotate(dest=256, src=0, step=2)) if program == "rotate"
+               else (lambda: d.run_encode_post(dest=256, src=0)))
+        if ok:
+            run()
+            outs.append(d.store_cipher(256))
+        else:
+            with pytest.raises(ValueError, match="window"):
+                run()
+    if ok:
+        assert np.array_equal(outs[0], outs[1])

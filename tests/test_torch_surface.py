@@ -26,6 +26,7 @@ from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
 from aloha_tpu_torch.ops import aut, dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
+from aloha_tpu_torch.probes import op_probe, stream_prof, stream_prof2, stream_prof3
 
 torch.set_num_threads(2)
 
@@ -67,7 +68,10 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.isa.encoding', 'aloha_tpu_torch.isa.programs',"
         " 'aloha_tpu_torch.isa.interp', 'aloha_tpu_torch.torch_backend',"
         " 'aloha_tpu_torch.runtime.device', 'aloha_tpu_torch.runtime.host',"
-        " 'aloha_tpu_torch.trace_db', 'aloha_tpu_torch.profiling'} <= set(names)\n"
+        " 'aloha_tpu_torch.trace_db', 'aloha_tpu_torch.profiling',"
+        " 'aloha_tpu_torch.probes.common', 'aloha_tpu_torch.probes.op_probe',"
+        " 'aloha_tpu_torch.probes.stream_prof', 'aloha_tpu_torch.probes.stream_prof2',"
+        " 'aloha_tpu_torch.probes.stream_prof3'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
@@ -100,8 +104,11 @@ def test_library_is_named_by_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
-                                                 "aut.cu", "modarith.cuh"}
-    assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut"}
+                                                 "aut.cu", "probe_ops.cu", "probe_stages.cu",
+                                                 "modarith.cuh"}
+    assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut", "aloha_probe_ops",
+                                      "aloha_probe_stage_modes",
+                                      "aloha_probe_lane_stages"}
 
 
 def test_dispatch_routes_by_device():
@@ -128,6 +135,25 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
                           None, CFG)
     with pytest.raises(ValueError):
         aut.automorphism(x, 3, CFG.moduli[0])
+    p = torch.zeros((2, CFG.n), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        op_probe.probe_ops(p, "v0", 1)
+    with pytest.raises(ValueError):
+        stream_prof.stage_modes(p, "full", 1)
+    with pytest.raises(ValueError):
+        stream_prof2.lane_stages(p, "full", 13, 1)
+    with pytest.raises(ValueError):
+        stream_prof3.fwd_reps(p, 1)
+
+
+@pytest.mark.parametrize("module", ["op_probe", "stream_prof", "stream_prof2", "stream_prof3"])
+def test_probe_entry_points_refuse_to_run_without_cuda(module):
+    """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
+    no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
+    res = _run(["-m", f"aloha_tpu_torch.probes.{module}"], ROOT)
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""
+    assert "GPU" in res.stderr
 
 
 def test_device_entry_points_default_to_the_card():
