@@ -39,6 +39,10 @@ SIGNATURES = {
     "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_stage_modes": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_lane_stages": [_I] + [_P] * 4 + [_U] + [_I] * 4 + [_P],
+    "aloha_probe_mxu_rate": [_I] + [_P] * 3 + [_I] * 2 + [_P],
+    "aloha_probe_mxu_parts": [_I] + [_P] * 8 + [_U] + [_I] * 3 + [_P],
+    "aloha_probe_dynstage": [_I] + [_P] * 3 + [_I] * 2 + [_P],
+    "aloha_probe_dynsub": [_I] + [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -68,7 +68,7 @@ Tables = collections.namedtuple("Tables", "row lane tw tws crow ccol")
 
 
 # ------------------------------------------------------------------ tables
-def _bias_bits(kdim: int) -> int:
+def bias_bits(kdim: int) -> int:
     """Accumulator bias exponent: |e_j| <= K * 128 * 128 = K << 14."""
     return (kdim << 14).bit_length() - 1
 
@@ -83,7 +83,7 @@ def check_modulus(n: int, q: int) -> None:
         raise ValueError(f"modulus {q:#x} outside (2^59, 2^60)")
     delta = q - (1 << 59)
     for kdim in (NDIG * (n // LANES), NDIG * LANES):
-        b = _bias_bits(kdim)
+        b = bias_bits(kdim)
         vmax = sum((1 << (8 * j)) * (1 << (b + 1)) for j in range(NDIG)) + q
         if (vmax >> 59) * delta > 20 * q:
             raise ValueError(f"fold margin violated for q={q:#x}, K={kdim}")
@@ -142,7 +142,7 @@ def _digitize(mat: np.ndarray, q: int, bias_bits: int):
 def _lane_matrix(t: np.ndarray, q: int):
     """Digitise a (128, 128) lane matrix given as [out-lane, in-lane] and
     lay the digit blocks out as the right operand [k 128 + in-lane, out-lane]."""
-    cat, c = _digitize(t, q, _bias_bits(NDIG * LANES))
+    cat, c = _digitize(t, q, bias_bits(NDIG * LANES))
     cat = cat.reshape(NDIG, LANES, NDIG, LANES).transpose(0, 2, 3, 1)
     return np.ascontiguousarray(cat.reshape(NDIG, NDIG * LANES, LANES)), c
 
@@ -165,7 +165,7 @@ def tables_np(n: int, q: int, psi: int, inverse: bool) -> Tables:
     pe = _powers(eta, 2 * R, q)  # eta has order 2R
     po = _powers(omg, LANES, q)  # omega has order 128
     D = _powers(psi, 2 * n, q)[(odd[:, None] * lanes[None, :]) % (2 * n)]
-    b_row = _bias_bits(NDIG * R)
+    b_row = bias_bits(NDIG * R)
     if inverse:
         iR, iL = pow(R, q - 2, q), pow(LANES, q - 2, q)
         Minv = pe[(r[:, None] * odd[None, :]) % (2 * R)] * iR % q  # [r, i]
@@ -194,7 +194,9 @@ def _i64(a: np.ndarray, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _plain_tables(n: int, q: int, root: int, inverse: bool, device: torch.device):
+def plain_tables(n: int, q: int, root: int, inverse: bool, device: torch.device):
+    """The plain version's operands on `device`: row and lane digits as
+    float64, tw, tws, crow and ccol as int64 bit views."""
     tb = tables_np(n, q, _forward_root(q, root, inverse), inverse)
     f64 = lambda a: torch.from_numpy(a.astype(np.float64)).to(device)  # noqa: E731
     return Tables(f64(tb.row), f64(tb.lane), _i64(tb.tw, device),
@@ -220,7 +222,7 @@ def frag_lanes(t: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
+def kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
     """Stacked per-modulus kernel operands on `device`: fragment-ordered
     int8 row and lane digits, tw, tws, crow, ccol and q (int64)."""
     per = [tables_np(n, q, _forward_root(q, r, inverse), inverse) for q, r in zip(qs, roots)]
@@ -255,27 +257,33 @@ def _reduce(e, b: int, c, q: int):
     return acc
 
 
-def _row_step(x, tb: Tables, q: int):
-    """(nb, R, 128) -> rows product, data digits along the contraction
-    k = kk R + r."""
+def row_products(x, row):
+    """(nb, R, 128) -> the 8 exact row-product accumulators (8, nb, R, 128)
+    float64, data digits along the contraction k = kk R + r."""
     nb, R, L = x.shape
     s = _digits(x).permute(1, 0, 2, 3).reshape(nb, NDIG * R, L)
-    e = torch.matmul(tb.row[:, None], s[None])  # (8, nb, R, L)
-    return _reduce(e, _bias_bits(NDIG * R), tb.crow[:, None], q)
+    return torch.matmul(row[:, None], s[None])
+
+
+def lane_products(x, lane):
+    """(nb, R, 128) -> the 8 exact lane-product accumulators (8, nb, R, 128)
+    float64, data digits along the contraction k = kk 128 + l."""
+    nb, R, L = x.shape
+    s = _digits(x).permute(1, 2, 0, 3).reshape(nb, R, NDIG * L)
+    return torch.matmul(s[None], lane[:, None])
+
+
+def _row_step(x, tb: Tables, q: int):
+    return _reduce(row_products(x, tb.row), bias_bits(NDIG * x.shape[1]), tb.crow[:, None], q)
 
 
 def _lane_step(x, tb: Tables, q: int):
-    """(nb, R, 128) -> lanes product, data digits along the contraction
-    k = kk 128 + l."""
-    nb, R, L = x.shape
-    s = _digits(x).permute(1, 2, 0, 3).reshape(nb, R, NDIG * L)
-    e = torch.matmul(s[None], tb.lane[:, None])  # (8, nb, R, L)
-    return _reduce(e, _bias_bits(NDIG * L), tb.ccol, q)
+    return _reduce(lane_products(x, tb.lane), bias_bits(NDIG * LANES), tb.ccol, q)
 
 
 def _transform1(x, q: int, root: int, inverse: bool):
     nb, n = x.shape
-    tb = _plain_tables(n, q, int(root), inverse, x.device)
+    tb = plain_tables(n, q, int(root), inverse, x.device)
     first, second = (_lane_step, _row_step) if inverse else (_row_step, _lane_step)
     v = rt.mulmod(first(x.reshape(nb, n // LANES, LANES), tb, q), tb.tw, q)
     return second(v, tb, q).reshape(nb, n)
@@ -303,7 +311,7 @@ def _launch(x, qs, roots, inverse: bool, k: int, wrapper):
     dispatch.check(x, (M, nb, n), "x")
     if n not in KERNEL_RINGS:
         raise ValueError(f"ring degree {n}: the kernel takes n in {KERNEL_RINGS}")
-    af, tf, tw, tws, crow, ccol, qt = _kernel_tables(n, qs, roots, inverse, x.device)
+    af, tf, tw, tws, crow, ccol, qt = kernel_tables(n, qs, roots, inverse, x.device)
     y = torch.empty_like(x)
     if nb:
         err = _build.lib().aloha_ntt_mxu(

@@ -1,8 +1,12 @@
 """Resident test data, tables, 64-bit helpers and the marginal-timing protocol.
 
-A probe launches one CTA of 512 threads per polynomial with its 8192 words
+A probe launches one CTA per polynomial (or block of rows) with its words
 in shared memory for the whole launch, and repeats a step REPS times on
-them.  Its cost per repetition is a marginal: t(REPS_hi) and t(REPS_lo)
+them.  Where a TPU script chained K separate calls, the port repeats inside
+one launch instead: a launch of this port costs 20-100 µs of host floor
+(ctypes, `cudaSetDevice` and `cudaFuncSetAttribute` on every call; PERF.md
+§6), so a chain of launches of a few µs of device work each would time the
+host.  Its cost per repetition is a marginal: t(REPS_hi) and t(REPS_lo)
 are each the least, over ITERS tries, of the mean time of BURST launches
 enqueued back to back between two CUDA events, and (t_hi - t_lo) /
 ((REPS_hi - REPS_lo) NB_TIME) is the time per polynomial per repetition.  The
@@ -20,7 +24,6 @@ and shifts wrap mod 2^64 as the kernels' u64 arithmetic does.
 from __future__ import annotations
 
 import functools
-import math
 import subprocess
 import sys
 
@@ -82,6 +85,16 @@ def check_reps(reps: int, name: str = "reps") -> None:
         raise ValueError(f"{name} = {reps}: a count in [0, 2^31) required")
 
 
+def check_operand(t: torch.Tensor, dtype, shape, name: str) -> None:
+    """Raise ValueError unless t has the dtype and shape and is contiguous."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
 def launch(entry: str, x: torch.Tensor, *ints: int) -> torch.Tensor:
     """One launch of the C entry `entry(device, x, y, w, ws, q, *ints,
     stream)` on x (nb, N) int64 with q0's tables: the new (nb, N) y."""
@@ -123,12 +136,11 @@ def join(top, bottom):
 
 
 # --------------------------------------------------------------- timing
-def time_ms(fn) -> float:
-    """The time of one call of fn: the least, over ITERS tries, of the mean
-    of BURST calls enqueued back to back between two CUDA events, after one
-    warm-up call."""
+def bursts_ms(fn) -> list:
+    """The ITERS tries of one call of fn, each the mean of BURST calls
+    enqueued back to back between two CUDA events, after one warm-up call."""
     fn()
-    best = math.inf
+    tries = []
     for _ in range(ITERS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -137,18 +149,30 @@ def time_ms(fn) -> float:
             fn()
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end) / BURST)
-    return best
+        tries.append(start.elapsed_time(end) / BURST)
+    return tries
+
+
+def time_ms(fn) -> float:
+    """The time of one call of fn: the least of `bursts_ms`."""
+    return min(bursts_ms(fn))
+
+
+def marginal(run, reps: tuple):
+    """(ns per polynomial per repetition, t_lo ms, t_hi ms, spread ms) of
+    run(r), one launch of r repetitions on NB_TIME polynomials, at r =
+    reps[0] and reps[1]; the spread is the larger of the two tries' ranges
+    (most - least), the noise the difference t_hi - t_lo has to exceed."""
+    lo, hi = reps
+    b_lo, b_hi = bursts_ms(lambda: run(lo)), bursts_ms(lambda: run(hi))
+    t_lo, t_hi = min(b_lo), min(b_hi)
+    spread = max(max(b_lo) - t_lo, max(b_hi) - t_hi)
+    return (t_hi - t_lo) * 1e6 / ((hi - lo) * NB_TIME), t_lo, t_hi, spread
 
 
 def marginal_ns(run, reps: tuple):
-    """(ns per polynomial per repetition, t_lo ms, t_hi ms) of run(r), one
-    launch of r repetitions on NB_TIME polynomials, at r = reps[0] and
-    reps[1]."""
-    lo, hi = reps
-    t_lo = time_ms(lambda: run(lo))
-    t_hi = time_ms(lambda: run(hi))
-    return (t_hi - t_lo) * 1e6 / ((hi - lo) * NB_TIME), t_lo, t_hi
+    """`marginal` without the spread."""
+    return marginal(run, reps)[:3]
 
 
 def card() -> str:

@@ -55,15 +55,20 @@ Phases, each printing its own line; any failure exits nonzero:
      .tdb trace verified against the CPU, the rotations decrypting within
      1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
      per launch kind, and one profiled key-switch beside the fused rotate;
-  9. probes: the four NTT cost probes (aloha_tpu_torch.probes; csrc/
-     probe_ops.cu, csrc/probe_stages.cu), each kernel in every variant or
-     mode (op_probe v0-v14, the forward transforms, stream_prof's three
-     modes, stream_prof2's four modes at 2 and 13 stages) against its plain
-     version (torch.equal) at the main path's shape, nb=256, and its lower
-     REPS, then at nb=8, 3 repetitions (timed); then the probes' own
-     measurement at nb=256: the marginal ns per polynomial per repetition
-     of each, beside its bound (the step's INT32 instructions over the
-     integer issue peak), with all four kernels launched.
+  9. probes: the eight cost probes (aloha_tpu_torch.probes; csrc/
+     probe_ops.cu, csrc/probe_stages.cu, csrc/probe_mxu.cu, csrc/
+     probe_dyn.cu), each kernel in every variant or mode (op_probe v0-v14,
+     the forward transforms, stream_prof's three modes, stream_prof2's four
+     modes at 2 and 13 stages, the int8 rate probe, the three parts of a
+     tensor-core transform, the lane and row stages under a runtime index)
+     against its plain version (torch.equal) at the main path's shape,
+     nb (or BP) = 256, and its lower REPS, then at nb=8, 3 repetitions
+     (timed; the rate probe at BP=256, 1 repetition, beside one
+     torch._int_mm of the same products); then the probes' own measurement
+     at nb=256: the marginal ns per polynomial (block) per repetition of
+     each, beside its bound (int8 MACs over the tensor-core peak, INT32
+     instructions over the integer issue peak, the larger), with all eight
+     kernels launched.
 The line before the last is a JSON object of the kernels (launches summed
 over the main paths, and per path; each kernel's bound from this run's
 shapes); the last line is {"ok": true, "device": {...}}.
@@ -221,9 +226,12 @@ def mxu_work(nb: int, M: int, k: int = 1):
 
 def bound(work):
     """(µs, "bytes" or "operations"): the larger of the bytes over the HBM
-    rate and the operations over their peak."""
+    rate and the operations over their peak.  `ops` may be a dict of
+    operations by kind (kind None): the tensor cores and the integer lanes
+    run side by side, so the slowest kind counts."""
     nbytes, ops, kind = work
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK[kind]
+    t_ops = max(n / PEAK[k] for k, n in (ops.items() if kind is None else [(kind, ops)]))
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -973,10 +981,94 @@ def probe_work(nb: int, reps: int, ops_per_rep: int):
     return 2 * nb * CFG.n * 8 + 2 * CFG.n * 8, nb * reps * ops_per_rep, "int32"
 
 
+def rate_work(bp: int, reps: int):
+    """One rate-probe launch: x (8, 64 bp, 128) int8 in and out, w once,
+    `reps` repetitions of 64 digit-pair products and the combine."""
+    from aloha_tpu_torch.probes import probe_mxu as P
+
+    return (2 * 8 * bp * 64 * 128 + 8 * 128 * 128,
+            {"int8": 2 * P.MACS * bp * reps, "int32": P.OPS * bp * reps}, None)
+
+
+def parts_work(variant: str, nb: int, reps: int):
+    """One parts-probe launch: nb polynomials in and out, ntt_mxu.cu's
+    forward tables once, `reps` transforms of the variant."""
+    from aloha_tpu_torch.probes import probe_mxu_parts as P
+
+    nbytes = mxu_work(nb, 1)[0]
+    ops = {"int32": P.OPS[variant] * nb * reps}
+    if variant != "vpu":
+        ops["int8"] = 2 * P.MACS * nb * reps
+    return nbytes, ops, None
+
+
+def dyn_work(nb: int, reps: int, ops_per_rep: int, table: bool):
+    """One dyn-probe launch: nb (64, 128) u32 blocks in and out, the
+    (13, 64, 128) table once when `table`, `reps` repetitions."""
+    return 2 * nb * 8192 * 4 + (13 * 8192 * 4 if table else 0), nb * reps * ops_per_rep, "int32"
+
+
+def graph_ms(fn, calls: int = 16) -> float:
+    """Mean time of one call of fn in a burst of `calls` captured in one CUDA
+    graph (no host enqueue between them): the least of 5 replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e) / calls)
+    return best
+
+
+def _library_rate(card: str, results: dict, x, w):
+    """torch._int_mm of the rate probe's products ([x_0 ... x_7] (M, 1024)
+    by Wcat (1024, 1024)), Wcat row-major and column-major (K contiguous,
+    the layout int8 GEMMs take): its accumulators against the plain
+    version's, its time in a graph burst; the faster layout is the
+    yardstick.  The port never calls it."""
+    import torch
+
+    from aloha_tpu_torch.probes import probe_mxu
+
+    M = x.shape[1]
+    X = x.permute(1, 0, 2).reshape(M, 8 * 128).contiguous()
+    Wcat = w.permute(1, 0, 2).reshape(128, 8 * 128).repeat(8, 1).contiguous()
+    best = float("inf")
+    for layout, B in (("row-major", Wcat), ("column-major", Wcat.t().contiguous().t())):
+        acc = torch._int_mm(X, B).reshape(M, 8, 128).permute(1, 0, 2)
+        if not torch.equal(acc.to(torch.int64), probe_mxu.accumulators_plain(x, w)):
+            fail(f"torch._int_mm's accumulators ({layout}) differ from the rate probe's plain ones")
+        ms = graph_ms(lambda: torch._int_mm(X, B))
+        print(f"library torch._int_mm ({M}, 1024) x (1024, 1024) {layout} int8 -> int32: "
+              f"{ms * 1e3:.2f} us per call "
+              f"({2 * probe_mxu.MACS * M / 64 / (ms * 1e-3) / 1e12:.1f} TOP/s) on {card}",
+              flush=True)
+        best = min(best, ms)
+    results.setdefault("library", {})["probe_mxu"] = best
+
+
 def phase_probes(card: str, dev, results: dict):
-    """The four NTT cost probes: every variant and mode against its plain
+    """The eight cost probes: every variant and mode against its plain
     version, then the probes' own marginal timings (the main path)."""
-    from aloha_tpu_torch.probes import common, op_probe, stream_prof, stream_prof2, stream_prof3
+    from aloha_tpu_torch.probes import (common, op_probe, probe_dynstage, probe_dynsub,
+                                        probe_mxu, probe_mxu_parts, stream_prof, stream_prof2,
+                                        stream_prof3)
 
     # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition, timed REPS)
     cases = [("probe_ops", v, lambda x, r, v=v: op_probe.probe_ops(x, v, r),
@@ -1009,32 +1101,98 @@ def phase_probes(card: str, dev, results: dict):
         check(results, card, kernel, f"{label} nb={PROBE_NB} reps={R}", lambda: run(x, R),
               lambda: plain(x, R), probe_work(PROBE_NB, R, ops), 1, 3)
 
+    # the tensor-core and runtime-stage probes: (kernel, label, inputs(nb),
+    # wrapper(*inputs, reps), plain(*inputs, reps), work(nb, reps), REPS)
+    more = [("probe_mxu", "rate", lambda nb: probe_mxu.data(nb, dev), probe_mxu.digit_products,
+             probe_mxu.digit_products_plain, rate_work, probe_mxu.REPS)]
+    more += [("probe_mxu_parts", v, lambda nb: (probe_mxu_parts.data(nb, dev),),
+              lambda x, r, v=v: probe_mxu_parts.parts(x, v, r),
+              lambda x, r, v=v: probe_mxu_parts.parts_plain(x, v, r),
+              lambda nb, r, v=v: parts_work(v, nb, r), probe_mxu_parts.REPS)
+             for v in probe_mxu_parts.VARIANTS]
+    more += [("probe_dynstage", "lanes",
+              lambda nb: (probe_dynstage.data(nb, dev), probe_dynstage.table(dev)),
+              probe_dynstage.dynstage, probe_dynstage.dynstage_plain,
+              lambda nb, r: dyn_work(nb, r, probe_dynstage.OPS, True), probe_dynstage.REPS),
+             ("probe_dynsub", "rows", lambda nb: (probe_dynstage.data(nb, dev),),
+              probe_dynsub.dynsub, probe_dynsub.dynsub_plain,
+              lambda nb, r: dyn_work(nb, r, probe_dynsub.OPS, False), probe_dynsub.REPS)]
+    t0 = time.perf_counter()
+    for kernel, label, inputs, run, plain, _, reps in more:
+        args, r = inputs(nb), reps[0]
+        err = compare(kernel, f"{label} nb={nb} reps={r}", lambda: run(*args, r),
+                      lambda: plain(*args, r))
+        results.setdefault(kernel, []).append((f"{label} nb={nb} reps={r}", err))
+    print(f"probes: {len(more)} tensor-core and runtime-stage cases equal at nb={nb}, their "
+          f"lower REPS, in {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    # timed at a small shape; the rate probe also at the measured BP with one
+    # repetition, beside the library call that computes its products
+    for kernel, label, inputs, run, plain, work, _ in more:
+        shapes = [(PROBE_NB, R)] + ([(nb, 1)] if kernel == "probe_mxu" else [])
+        for small, r in shapes:
+            args = inputs(small)
+            check(results, card, kernel, f"{label} nb={small} reps={r}", lambda: run(*args, r),
+                  lambda: plain(*args, r), work(small, r), 1, 3)
+    _library_rate(card, results, *probe_mxu.data(nb, dev))
+
     # the main path: counts start at 0 here
     counters = {"probe_ops": op_probe.probe_ops, "probe_fwd_reps": stream_prof3.fwd_reps,
                 "probe_stage_modes": stream_prof.stage_modes,
-                "probe_lane_stages": stream_prof2.lane_stages}
+                "probe_lane_stages": stream_prof2.lane_stages,
+                "probe_mxu": probe_mxu.digit_products, "probe_mxu_parts": probe_mxu_parts.parts,
+                "probe_dynstage": probe_dynstage.dynstage, "probe_dynsub": probe_dynsub.dynsub}
     for fn in counters.values():
         fn.launches = 0
+    def ops_ns(ops: dict) -> float:
+        """The bound of a repetition on resident data: operations only."""
+        return max(n / PEAK[k] for k, n in ops.items()) * 1e9
+
+    int32_ns = lambda ops: ops_ns({"int32": ops})  # noqa: E731
     t0 = time.perf_counter()
     measured = {
-        "probe_ops": [(v, ns, lo, hi, op_probe.REPS, op_probe.OPS[v])
+        "probe_ops": [(v, ns, lo, hi, None, op_probe.REPS, int32_ns(op_probe.OPS[v]))
                       for v, ns, lo, hi in op_probe.measure(op_probe.VARIANTS, dev)],
-        "probe_fwd_reps": [("fwd", *stream_prof3.measure(dev), stream_prof3.REPS,
-                            stream_prof3.OPS)],
-        "probe_stage_modes": [(m, ns, lo, hi, stream_prof.REPS, stream_prof.OPS[m])
+        "probe_fwd_reps": [("fwd", *stream_prof3.measure(dev), None, stream_prof3.REPS,
+                            int32_ns(stream_prof3.OPS))],
+        "probe_stage_modes": [(m, ns, lo, hi, None, stream_prof.REPS, int32_ns(stream_prof.OPS[m]))
                               for m, ns, lo, hi in stream_prof.measure(stream_prof.MODES, dev)],
-        "probe_lane_stages": [(c, ns, lo, hi, stream_prof2.REPS,
-                               stream_prof2.ops(*stream_prof2.parse(c)))
+        "probe_lane_stages": [(c, ns, lo, hi, None, stream_prof2.REPS,
+                               int32_ns(stream_prof2.ops(*stream_prof2.parse(c))))
                               for c, ns, lo, hi in stream_prof2.measure(stream_prof2.CASES, dev)],
+        "probe_mxu": [("rate", *probe_mxu.measure(dev), probe_mxu.REPS,
+                       ops_ns(rate_work(1, 1)[1]))],
+        "probe_mxu_parts": [(v, ns, lo, hi, spread, probe_mxu_parts.REPS,
+                             ops_ns(parts_work(v, 1, 1)[1]))
+                            for v, ns, lo, hi, spread in probe_mxu_parts.measure(
+                                probe_mxu_parts.VARIANTS, dev)],
+        "probe_dynstage": [("lanes", *probe_dynstage.measure(dev), probe_dynstage.REPS,
+                            int32_ns(probe_dynstage.OPS))],
+        "probe_dynsub": [("rows", *probe_dynsub.measure(dev), probe_dynsub.REPS,
+                          int32_ns(probe_dynsub.OPS))],
     }
     launches = {name: fn.launches for name, fn in counters.items()}
     for kernel, rows in measured.items():
-        for label, ns, t_lo, t_hi, reps, ops in rows:
-            bound_ns = ops / PEAK["int32"] * 1e9
+        for label, ns, t_lo, t_hi, spread, reps, bound_ns in rows:
+            extra = ""
+            if spread is not None:
+                extra = (f" spread={spread:.4f} ms (t({reps[1]}) - t({reps[0]}) = "
+                         f"{(t_hi - t_lo) / spread if spread else float('inf'):.1f} spreads)")
+            per_ns = (lambda v: v / ns) if ns > 0 else (lambda v: float("nan"))
+            if kernel == "probe_mxu":
+                lib_ns = results["library"]["probe_mxu"] * 1e6 / common.NB_TIME
+                extra += (f" {per_ns(probe_mxu.MACS) / 1e3:.1f} T-MACs/s; torch._int_mm "
+                          f"{lib_ns:.3f} ns per polynomial")
+            if kernel == "probe_mxu_parts":
+                tb = probe_mxu_parts.TABLE_BYTES[label]
+                extra += f" table_bytes={tb} ({per_ns(tb):.1f} GB/s through L2)"
             print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
                   f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
-                  f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME} on {card}", flush=True)
+                  f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME}{extra} on {card}", flush=True)
             results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (ns, bound_ns)
+    parts_ns = {v: results["marginal"]["probe_mxu_parts"][v][0] for v in probe_mxu_parts.VARIANTS}
+    print(f"probe probe_mxu_parts split: full {parts_ns['full']:.1f} ns, mxu {parts_ns['mxu']:.1f} "
+          f"+ vpu {parts_ns['vpu']:.1f} = {parts_ns['mxu'] + parts_ns['vpu']:.1f} ns, the larger "
+          f"{max(parts_ns['mxu'], parts_ns['vpu']):.1f} ns on {card}", flush=True)
     print(f"probes: measured in {time.perf_counter() - t0:.1f} s, launches={launches} on {card}",
           flush=True)
     for name, count in launches.items():
@@ -1095,6 +1253,14 @@ def main():
         "probe_lane_stages": ("aloha_tpu_torch/csrc/probe_stages.cu",
                               "tools/stream_prof2.py:64", None,
                               f"full-13 nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_mxu": ("aloha_tpu_torch/csrc/probe_mxu.cu", "tools/probe_mxu.py:58", None,
+                      "rate nb=256 reps=1"),
+        "probe_mxu_parts": ("aloha_tpu_torch/csrc/probe_mxu.cu", "tools/probe_mxu_parts.py:123",
+                            None, f"full nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_dynstage": ("aloha_tpu_torch/csrc/probe_dyn.cu", "tools/probe_dynstage.py:38",
+                           None, f"lanes nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_dynsub": ("aloha_tpu_torch/csrc/probe_dyn.cu", "tools/probe_dynsub.py:30", None,
+                         f"rows nb={PROBE_NB} reps={PROBE_REPS}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():
@@ -1106,7 +1272,7 @@ def main():
                  "max_abs_err": max(r[1] for r in rows),
                  "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
                  "bound_ms": b_us / 1e3, "bound_by": b_by,
-                 "library_ms": None, "shape": main_case}
+                 "library_ms": results.get("library", {}).get(name), "shape": main_case}
         if also:
             entry["also_replaces"] = also
         if name in results.get("marginal", {}):

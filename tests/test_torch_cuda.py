@@ -20,7 +20,8 @@ from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 from aloha_tpu_torch.probes import common as probe_common
-from aloha_tpu_torch.probes import op_probe, stream_prof, stream_prof2, stream_prof3
+from aloha_tpu_torch.probes import (op_probe, probe_dynstage, probe_dynsub, probe_mxu,
+                                    probe_mxu_parts, stream_prof, stream_prof2, stream_prof3)
 
 pytestmark = pytest.mark.cuda
 
@@ -354,6 +355,46 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert torch.equal(got, plain(x, *args, reps)), (nb, reps)
+
+
+MXU_PROBE_CASES = ([("rate", None)] + [("parts", v) for v in probe_mxu_parts.VARIANTS]
+                   + [("dynstage", None), ("dynsub", None)])
+
+
+@pytest.mark.parametrize("kind,variant", MXU_PROBE_CASES)
+def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
+    """csrc/probe_mxu.cu (the rate probe, the three parts variants) and
+    csrc/probe_dyn.cu equal their plain versions at small shapes, REPS 1
+    and 3, and at the measured shape (BP or nb = NB_TIME) at the lower
+    REPS; each launch counts once."""
+    big = probe_common.NB_TIME
+    if kind == "rate":
+        fn, plain, reps = probe_mxu.digit_products, probe_mxu.digit_products_plain, probe_mxu.REPS
+        inputs = lambda nb: probe_mxu.data(nb, dev)  # noqa: E731
+        shapes = ((2, 1), (2, 3), (probe_mxu.BP_CHECK, 3))
+    elif kind == "parts":
+        fn = lambda x, r: probe_mxu_parts.parts(x, variant, r)  # noqa: E731
+        plain = lambda x, r: probe_mxu_parts.parts_plain(x, variant, r)  # noqa: E731
+        reps = probe_mxu_parts.REPS
+        inputs = lambda nb: (probe_mxu_parts.data(nb, dev),)  # noqa: E731
+        shapes = ((8, 1), (8, 3))
+    elif kind == "dynstage":
+        fn, plain = probe_dynstage.dynstage, probe_dynstage.dynstage_plain
+        reps = probe_dynstage.REPS
+        inputs = lambda nb: (probe_dynstage.data(nb, dev), probe_dynstage.table(dev))  # noqa: E731
+        shapes = ((1, 1), (3, 3))
+    else:
+        fn, plain, reps = probe_dynsub.dynsub, probe_dynsub.dynsub_plain, probe_dynsub.REPS
+        inputs = lambda nb: (probe_dynstage.data(nb, dev),)  # noqa: E731
+        shapes = ((1, 1), (3, 3))
+    counter = probe_mxu_parts.parts if kind == "parts" else fn
+    for nb, r in shapes + ((big, reps[0]),):
+        args = inputs(nb)
+        before = counter.launches
+        got = fn(*args, r)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert torch.equal(got, plain(*args, r)), (nb, r)
 
 
 #: (program, word range of the input, whether the transform takes it)

@@ -26,7 +26,8 @@ from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
 from aloha_tpu_torch.ops import aut, dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
-from aloha_tpu_torch.probes import op_probe, stream_prof, stream_prof2, stream_prof3
+from aloha_tpu_torch.probes import (op_probe, probe_dynstage, probe_dynsub, probe_mxu,
+                                    probe_mxu_parts, stream_prof, stream_prof2, stream_prof3)
 
 torch.set_num_threads(2)
 
@@ -71,7 +72,9 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.trace_db', 'aloha_tpu_torch.profiling',"
         " 'aloha_tpu_torch.probes.common', 'aloha_tpu_torch.probes.op_probe',"
         " 'aloha_tpu_torch.probes.stream_prof', 'aloha_tpu_torch.probes.stream_prof2',"
-        " 'aloha_tpu_torch.probes.stream_prof3'} <= set(names)\n"
+        " 'aloha_tpu_torch.probes.stream_prof3', 'aloha_tpu_torch.probes.probe_mxu',"
+        " 'aloha_tpu_torch.probes.probe_mxu_parts', 'aloha_tpu_torch.probes.probe_dynstage',"
+        " 'aloha_tpu_torch.probes.probe_dynsub'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
@@ -105,10 +108,13 @@ def test_library_is_named_by_the_sources():
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
                                                  "aut.cu", "probe_ops.cu", "probe_stages.cu",
-                                                 "modarith.cuh"}
+                                                 "probe_mxu.cu", "probe_dyn.cu", "modarith.cuh",
+                                                 "mxu_core.cuh"}
     assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut", "aloha_probe_ops",
                                       "aloha_probe_stage_modes",
-                                      "aloha_probe_lane_stages"}
+                                      "aloha_probe_lane_stages", "aloha_probe_mxu_rate",
+                                      "aloha_probe_mxu_parts", "aloha_probe_dynstage",
+                                      "aloha_probe_dynsub"}
 
 
 def test_dispatch_routes_by_device():
@@ -144,9 +150,23 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         stream_prof2.lane_stages(p, "full", 13, 1)
     with pytest.raises(ValueError):
         stream_prof3.fwd_reps(p, 1)
+    with pytest.raises(ValueError):
+        probe_mxu_parts.parts(p, "full", 1)
+    x8 = torch.zeros((8, 64, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        probe_mxu.digit_products(x8, torch.zeros((8, 128, 128), dtype=torch.int8, device="meta"),
+                                 1)
+    blocks = torch.zeros((2, 64, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        probe_dynstage.dynstage(blocks, torch.zeros((13, 64, 128), dtype=torch.int32,
+                                                            device="meta"), 1)
+    with pytest.raises(ValueError):
+        probe_dynsub.dynsub(blocks, 1)
 
 
-@pytest.mark.parametrize("module", ["op_probe", "stream_prof", "stream_prof2", "stream_prof3"])
+@pytest.mark.parametrize("module", ["op_probe", "stream_prof", "stream_prof2", "stream_prof3",
+                                    "probe_mxu", "probe_mxu_parts", "probe_dynstage",
+                                    "probe_dynsub"])
 def test_probe_entry_points_refuse_to_run_without_cuda(module):
     """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
     no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
