@@ -13,7 +13,10 @@ enqueued back to back between two CUDA events, and (t_hi - t_lo) /
 launch's own cost and the loads and stores are the same at both REPS and
 drop out of the difference; the burst keeps the host's enqueue gap out of
 the events (a single launch between two events counts it, and its spread
-swamped the difference of the cheapest probes).
+swamped the difference of the cheapest probes).  A copy pipeline has no
+repetition to difference: its marginal is over the batch instead
+(`batch_marginal`, t(nb_hi) - t(nb_lo) over nb_hi - nb_lo), which cancels
+the launch's cost the same way.
 
 The plain versions' 64-bit products go through `rns_torch`'s 30-bit limbs
 (`mul_lo64`, `mul_hi64`, `mulmod_shoup`, whose operands stay below 4q
@@ -42,6 +45,7 @@ NB_TIME = 256
 ITERS = 5
 BURST = 4
 M32 = 0xFFFFFFFF
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (the copy pipelines' bound)
 
 # INT32 instructions of the kernels' arithmetic, counted from the code as
 # chip_smoke.py's CT_OPS are: a 64-bit add, subtract, compare or select is 2,
@@ -158,16 +162,31 @@ def time_ms(fn) -> float:
     return min(bursts_ms(fn))
 
 
-def marginal(run, reps: tuple):
-    """(ns per polynomial per repetition, t_lo ms, t_hi ms, spread ms) of
-    run(r), one launch of r repetitions on NB_TIME polynomials, at r =
-    reps[0] and reps[1]; the spread is the larger of the two tries' ranges
-    (most - least), the noise the difference t_hi - t_lo has to exceed."""
-    lo, hi = reps
+def _two_points(run, points: tuple, units: int):
+    """(ns per unit, t_lo ms, t_hi ms, spread ms) of run(p) at p = points[0]
+    and points[1], `units` units per step of p; the spread is the larger of
+    the two tries' ranges (most - least), the noise the difference t_hi -
+    t_lo has to exceed."""
+    lo, hi = points
     b_lo, b_hi = bursts_ms(lambda: run(lo)), bursts_ms(lambda: run(hi))
     t_lo, t_hi = min(b_lo), min(b_hi)
     spread = max(max(b_lo) - t_lo, max(b_hi) - t_hi)
-    return (t_hi - t_lo) * 1e6 / ((hi - lo) * NB_TIME), t_lo, t_hi, spread
+    return (t_hi - t_lo) * 1e6 / ((hi - lo) * units), t_lo, t_hi, spread
+
+
+def marginal(run, reps: tuple):
+    """(ns per polynomial per repetition, t_lo ms, t_hi ms, spread ms) of
+    run(r), one launch of r repetitions on NB_TIME polynomials, at r =
+    reps[0] and reps[1]."""
+    return _two_points(run, reps, NB_TIME)
+
+
+def batch_marginal(run, nbs: tuple):
+    """(ns per block or polynomial, t_lo ms, t_hi ms, spread ms) of run(nb),
+    one launch on nb blocks (or polynomials), at nb = nbs[0] and nbs[1]:
+    the marginal over the batch, for a step with no repetition to difference
+    (a copy pipeline).  The launch's own cost drops out as in `marginal`."""
+    return _two_points(run, nbs, 1)
 
 
 def marginal_ns(run, reps: tuple):
@@ -182,6 +201,16 @@ def card() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def int32_peak() -> float:
+    """The integer issue peak, INT32 instructions per second: 132 SMs x 128
+    lanes x the card's clocks.max.sm (chip_smoke.py's INT32 peak)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return 132 * 128 * float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
 def require_card() -> str:

@@ -68,7 +68,16 @@ Phases, each printing its own line; any failure exits nonzero:
      at nb=256: the marginal ns per polynomial (block) per repetition of
      each, beside its bound (int8 MACs over the tensor-core peak, INT32
      instructions over the integer issue peak, the larger), with all eight
-     kernels launched.
+     kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
+     dma_bisect's one slot in both modes, the double-buffered roll and
+     row-pair swap, the table read, 4 and 7 NTT lane stages) against their
+     plain versions at the scripts' batches (16 or 32), at nb=133 and at
+     the timed lower nb (2048 blocks, 1024 polynomials; timed there), and
+     torch copy_ of the same blocks; on the main path, the marginal ns per
+     block (polynomial) over the batch between 2048 and 8192 blocks (1024
+     and 4096 polynomials), beside its bound (bytes in and out over the HBM
+     rate; the stages' INT32 instructions, the larger), the rate in GB/s,
+     and copy_'s marginal, with all four kernels launched.
 The line before the last is a JSON object of the kernels (launches summed
 over the main paths, and per path; each kernel's bound from this run's
 shapes); the last line is {"ok": true, "device": {...}}.
@@ -1008,6 +1017,13 @@ def dyn_work(nb: int, reps: int, ops_per_rep: int, table: bool):
     return 2 * nb * 8192 * 4 + (13 * 8192 * 4 if table else 0), nb * reps * ops_per_rep, "int32"
 
 
+def dma_work(nb: int, block_bytes: int, once_bytes: int, ops_per_block: int):
+    """One copy-pipeline launch: nb blocks (or polynomials), each moving
+    `block_bytes` in and out, `once_bytes` of tables read once, the step's
+    INT32 instructions."""
+    return nb * block_bytes + once_bytes, nb * ops_per_block, "int32"
+
+
 def graph_ms(fn, calls: int = 16) -> float:
     """Mean time of one call of fn in a burst of `calls` captured in one CUDA
     graph (no host enqueue between them): the least of 5 replays."""
@@ -1064,11 +1080,18 @@ def _library_rate(card: str, results: dict, x, w):
 
 
 def phase_probes(card: str, dev, results: dict):
-    """The eight cost probes: every variant and mode against its plain
-    version, then the probes' own marginal timings (the main path)."""
+    """The eight step probes and the four copy pipelines: every variant and
+    mode against its plain version, then the probes' own marginal timings
+    (the main path)."""
+    import torch
+
     from aloha_tpu_torch.probes import (common, op_probe, probe_dynstage, probe_dynsub,
                                         probe_mxu, probe_mxu_parts, stream_prof, stream_prof2,
                                         stream_prof3)
+    from aloha_tpu_torch.probes import dma_bisect as D
+    from aloha_tpu_torch.probes import dma_bisect_doublebuf as DB
+    from aloha_tpu_torch.probes import dma_bisect_stages as DS
+    from aloha_tpu_torch.probes import dma_bisect_tblread as DT
 
     # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition, timed REPS)
     cases = [("probe_ops", v, lambda x, r, v=v: op_probe.probe_ops(x, v, r),
@@ -1135,12 +1158,48 @@ def phase_probes(card: str, dev, results: dict):
                   lambda: plain(*args, r), work(small, r), 1, 3)
     _library_rate(card, results, *probe_mxu.data(nb, dev))
 
+    # the copy pipelines: (kernel, label, wrapper(x), plain(x), inputs, the
+    # compared batches, the last of them also timed, work(nb)); the inputs
+    # are drawn once at the larger timed batch, a batch is their first nb
+    t0 = time.perf_counter()
+    xb, xp, tt = D.blocks(D.NBS[1], dev), common.resident_data(DS.NBS[1], dev), DT.table(dev)
+    dma = [("probe_dma_copy", m, lambda x, m=m: D.dma_copy(x, m),
+            lambda x, m=m: D.dma_copy_plain(x, m), xb, (16, 133, D.NBS[0]),
+            lambda nb, m=m: dma_work(nb, D.BLOCK_BYTES, 0, D.OPS[m])) for m in D.MODES]
+    dma += [("probe_dma_doublebuf", "roll-swap", DB.doublebuf, DB.doublebuf_plain, xb,
+             (32, 133, D.NBS[0]), lambda nb: dma_work(nb, D.BLOCK_BYTES, 0, DB.OPS)),
+            ("probe_dma_tblread", "table", lambda x: DT.tblread(tt, x),
+             lambda x: DT.tblread_plain(tt, x), xb, (32, 133, D.NBS[0]),
+             lambda nb: dma_work(nb, D.BLOCK_BYTES, DT.TABLE_BYTES, DT.OPS))]
+    dma += [("probe_dma_stages", f"nstages={k}", lambda x, k=k: DS.stages(x, k),
+             lambda x, k=k: DS.stages_plain(x, k), xp, (32, 133, DS.NBS[0]),
+             lambda nb, k=k: dma_work(nb, DS.POLY_BYTES, 2 * common.N * 8, DS.ops(k)))
+            for k in DS.NSTAGES]
+    for kernel, label, run, plain, x, nbs, work in dma:
+        for b in nbs[:-1]:
+            err = compare(kernel, f"{label} nb={b}", lambda: run(x[:b]), lambda: plain(x[:b]))
+            results.setdefault(kernel, []).append((f"{label} nb={b}", err))
+        b = nbs[-1]
+        check(results, card, kernel, f"{label} nb={b}", lambda: run(x[:b]), lambda: plain(x[:b]),
+              work(b))
+    y = torch.empty_like(xb)
+    b = D.NBS[0]
+    lib_us = time_us(lambda: y[:b].copy_(xb[:b]))
+    results.setdefault("library", {})["probe_dma_copy"] = lib_us / 1e3
+    print(f"library torch copy_ nb={b}: {lib_us:.1f} us per call "
+          f"({b * D.BLOCK_BYTES / lib_us / 1e3:.1f} GB/s) on {card}", flush=True)
+    print(f"probes: {len(dma)} copy-pipeline cases equal at the scripts' batches, nb=133 and "
+          f"the timed lower nb, in {time.perf_counter() - t0:.1f} s with the inputs drawn on "
+          f"{card}", flush=True)
+
     # the main path: counts start at 0 here
     counters = {"probe_ops": op_probe.probe_ops, "probe_fwd_reps": stream_prof3.fwd_reps,
                 "probe_stage_modes": stream_prof.stage_modes,
                 "probe_lane_stages": stream_prof2.lane_stages,
                 "probe_mxu": probe_mxu.digit_products, "probe_mxu_parts": probe_mxu_parts.parts,
-                "probe_dynstage": probe_dynstage.dynstage, "probe_dynsub": probe_dynsub.dynsub}
+                "probe_dynstage": probe_dynstage.dynstage, "probe_dynsub": probe_dynsub.dynsub,
+                "probe_dma_copy": D.dma_copy, "probe_dma_doublebuf": DB.doublebuf,
+                "probe_dma_stages": DS.stages, "probe_dma_tblread": DT.tblread}
     for fn in counters.values():
         fn.launches = 0
     def ops_ns(ops: dict) -> float:
@@ -1170,7 +1229,25 @@ def phase_probes(card: str, dev, results: dict):
         "probe_dynsub": [("rows", *probe_dynsub.measure(dev), probe_dynsub.REPS,
                           int32_ns(probe_dynsub.OPS))],
     }
+    bytes_ns = D.bound_ns(D.BLOCK_BYTES), "bytes"
+    copies = {
+        "probe_dma_copy": [(m, mm, bytes_ns) for m, *mm in D.measure(D.MODES, dev, xb)],
+        "probe_dma_doublebuf": [("roll-swap", DB.measure(dev, xb), bytes_ns)],
+        "probe_dma_tblread": [("table", DT.measure(dev, xb), bytes_ns)],
+        "probe_dma_stages": [(f"nstages={k}", mm, DS.bound(k, PEAK["int32"]))
+                             for k, *mm in DS.measure(DS.NSTAGES, dev, xp)],
+    }
     launches = {name: fn.launches for name, fn in counters.items()}
+    lib = D.measure_library(dev, xb)
+    del xb, xp, y
+    for kernel, rows in copies.items():
+        nbytes, nbs, unit = ((DS.POLY_BYTES, DS.NBS, "polynomial") if kernel == "probe_dma_stages"
+                             else (D.BLOCK_BYTES, D.NBS, "block"))
+        for label, m, bound_ns in rows:
+            print("probe " + D.report(f"{kernel} {label}", m, nbytes, card, nbs, unit, bound_ns),
+                  flush=True)
+            results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (m[0], bound_ns[0])
+    print("library " + D.report("torch copy_", lib, D.BLOCK_BYTES, card), flush=True)
     for kernel, rows in measured.items():
         for label, ns, t_lo, t_hi, spread, reps, bound_ns in rows:
             extra = ""
@@ -1201,6 +1278,19 @@ def phase_probes(card: str, dev, results: dict):
     return launches
 
 
+def step2_order(kernels) -> list:
+    """The kernels in the order a redesign should take them: first those
+    slower than their one-call library equivalent, by the factor ms /
+    library_ms; then the rest by the time the main paths lose to the bound,
+    launches x (ms - bound_ms)."""
+    lib = sorted((k for k in kernels if k["library_ms"] and k["ms"] > k["library_ms"]),
+                 key=lambda k: -k["ms"] / k["library_ms"])
+    rest = sorted((k for k in kernels if k not in lib),
+                  key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
+    return ([f"{k['name']} {k['ms'] / k['library_ms']:.2f}x library" for k in lib]
+            + [f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms lost" for k in rest])
+
+
 def main():
     card = phase_device()
     import torch
@@ -1210,14 +1300,23 @@ def main():
         PEAK["int32"] = INT32_LANES * clock * 1e6
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
+        t0 = time.perf_counter()
         phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
-        paths = {"serve": phase_serve(card, dev), "bench": phase_bench(card, dev, results),
-                 "shard": phase_shard(card, dev, results),
-                 "multiply": phase_multiply(card, dev, results),
-                 "isa": phase_isa(card, dev, results),
-                 "probes": phase_probes(card, dev, results)}
+        seconds = {"build+kernels": time.perf_counter() - t0}
+        paths = {}
+        for name, phase in (("serve", lambda: phase_serve(card, dev)),
+                            ("bench", lambda: phase_bench(card, dev, results)),
+                            ("shard", lambda: phase_shard(card, dev, results)),
+                            ("multiply", lambda: phase_multiply(card, dev, results)),
+                            ("isa", lambda: phase_isa(card, dev, results)),
+                            ("probes", lambda: phase_probes(card, dev, results))):
+            t0 = time.perf_counter()
+            paths[name] = phase()
+            seconds[name] = time.perf_counter() - t0
+        print("phases: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
+              flush=True)
     except SystemExit:
         raise
     except Exception:
@@ -1225,6 +1324,7 @@ def main():
         fail("a phase raised")
 
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.probes import dma_bisect, dma_bisect_stages
 
     nb, n, k = BENCH["batch"], CFG.n, BENCH["chain_k"]
     meta = {
@@ -1261,6 +1361,15 @@ def main():
                            None, f"lanes nb={PROBE_NB} reps={PROBE_REPS}"),
         "probe_dynsub": ("aloha_tpu_torch/csrc/probe_dyn.cu", "tools/probe_dynsub.py:30", None,
                          f"rows nb={PROBE_NB} reps={PROBE_REPS}"),
+        "probe_dma_copy": ("aloha_tpu_torch/csrc/probe_dma.cu", "tools/dma_bisect.py:34", None,
+                           f"copy nb={dma_bisect.NBS[0]}"),
+        "probe_dma_doublebuf": ("aloha_tpu_torch/csrc/probe_dma.cu",
+                                "tools/dma_bisect_doublebuf.py:52", None,
+                                f"roll-swap nb={dma_bisect.NBS[0]}"),
+        "probe_dma_stages": ("aloha_tpu_torch/csrc/probe_dma.cu", "tools/dma_bisect_stages.py:81",
+                             None, f"nstages=7 nb={dma_bisect_stages.NBS[0]}"),
+        "probe_dma_tblread": ("aloha_tpu_torch/csrc/probe_dma.cu", "tools/dma_bisect_tblread.py:51",
+                              None, f"table nb={dma_bisect.NBS[0]}"),
     }
     kernels = []
     for name, (src, repl, also, main_case) in meta.items():
@@ -1279,6 +1388,7 @@ def main():
             entry["marginal_ns"] = {k: v[0] for k, v in results["marginal"][name].items()}
             entry["bound_ns"] = {k: v[1] for k, v in results["marginal"][name].items()}
         kernels.append(entry)
+    print("step 2 order: " + ", ".join(step2_order(kernels)), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

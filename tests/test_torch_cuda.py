@@ -20,8 +20,10 @@ from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 from aloha_tpu_torch.probes import common as probe_common
-from aloha_tpu_torch.probes import (op_probe, probe_dynstage, probe_dynsub, probe_mxu,
-                                    probe_mxu_parts, stream_prof, stream_prof2, stream_prof3)
+from aloha_tpu_torch.probes import (dma_bisect, dma_bisect_doublebuf, dma_bisect_stages,
+                                    dma_bisect_tblread, op_probe, probe_dynstage, probe_dynsub,
+                                    probe_mxu, probe_mxu_parts, stream_prof, stream_prof2,
+                                    stream_prof3)
 
 pytestmark = pytest.mark.cuda
 
@@ -395,6 +397,42 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         assert torch.equal(got, plain(*args, r)), (nb, r)
+
+
+DMA_PROBE_CASES = ([("copy", m) for m in dma_bisect.MODES] + [("doublebuf", None),
+                   ("tblread", None)] + [("stages", k) for k in (0, 1, 4, 7)])
+
+
+@pytest.mark.parametrize("kind,arg", DMA_PROBE_CASES)
+def test_dma_probe_kernels_match_plain(dev, kind, arg):
+    """csrc/probe_dma.cu's four pipelines equal their plain versions at nb =
+    1, 16, 32 (the scripts' batches) and 133 (more chunks than SMs, not a
+    multiple of them), and on a view that starts at block 1; each launch
+    counts once."""
+    if kind == "copy":
+        fn = lambda x: dma_bisect.dma_copy(x, arg)  # noqa: E731
+        plain = lambda x: dma_bisect.dma_copy_plain(x, arg)  # noqa: E731
+        counter, data = dma_bisect.dma_copy, dma_bisect.blocks
+    elif kind == "doublebuf":
+        fn, plain = dma_bisect_doublebuf.doublebuf, dma_bisect_doublebuf.doublebuf_plain
+        counter, data = fn, dma_bisect.blocks
+    elif kind == "tblread":
+        t = dma_bisect_tblread.table(dev)
+        fn = lambda x: dma_bisect_tblread.tblread(t, x)  # noqa: E731
+        plain = lambda x: dma_bisect_tblread.tblread_plain(t, x)  # noqa: E731
+        counter, data = dma_bisect_tblread.tblread, dma_bisect.blocks
+    else:
+        fn = lambda x: dma_bisect_stages.stages(x, arg)  # noqa: E731
+        plain = lambda x: dma_bisect_stages.stages_plain(x, arg)  # noqa: E731
+        counter, data = dma_bisect_stages.stages, probe_common.resident_data
+    for nb in (1, 16, 32, 133):
+        x = data(nb + 1, dev, seed=nb)
+        for xs in (x[:nb], x[1:]):
+            before = counter.launches
+            got = fn(xs)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert torch.equal(got, plain(xs)), nb
 
 
 #: (program, word range of the input, whether the transform takes it)

@@ -26,8 +26,10 @@ from aloha_tpu import he_planes
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import _build, convert as cv
 from aloha_tpu_torch.ops import aut, dispatch, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
-from aloha_tpu_torch.probes import (op_probe, probe_dynstage, probe_dynsub, probe_mxu,
-                                    probe_mxu_parts, stream_prof, stream_prof2, stream_prof3)
+from aloha_tpu_torch.probes import (dma_bisect, dma_bisect_doublebuf, dma_bisect_stages,
+                                    dma_bisect_tblread, op_probe, probe_dynstage, probe_dynsub,
+                                    probe_mxu, probe_mxu_parts, stream_prof, stream_prof2,
+                                    stream_prof3)
 
 torch.set_num_threads(2)
 
@@ -74,7 +76,10 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.probes.stream_prof', 'aloha_tpu_torch.probes.stream_prof2',"
         " 'aloha_tpu_torch.probes.stream_prof3', 'aloha_tpu_torch.probes.probe_mxu',"
         " 'aloha_tpu_torch.probes.probe_mxu_parts', 'aloha_tpu_torch.probes.probe_dynstage',"
-        " 'aloha_tpu_torch.probes.probe_dynsub'} <= set(names)\n"
+        " 'aloha_tpu_torch.probes.probe_dynsub', 'aloha_tpu_torch.probes.dma_bisect',"
+        " 'aloha_tpu_torch.probes.dma_bisect_doublebuf',"
+        " 'aloha_tpu_torch.probes.dma_bisect_stages',"
+        " 'aloha_tpu_torch.probes.dma_bisect_tblread'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
@@ -108,13 +113,15 @@ def test_library_is_named_by_the_sources():
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
                                                  "aut.cu", "probe_ops.cu", "probe_stages.cu",
-                                                 "probe_mxu.cu", "probe_dyn.cu", "modarith.cuh",
-                                                 "mxu_core.cuh"}
+                                                 "probe_mxu.cu", "probe_dyn.cu", "probe_dma.cu",
+                                                 "modarith.cuh", "mxu_core.cuh"}
     assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut", "aloha_probe_ops",
                                       "aloha_probe_stage_modes",
                                       "aloha_probe_lane_stages", "aloha_probe_mxu_rate",
                                       "aloha_probe_mxu_parts", "aloha_probe_dynstage",
-                                      "aloha_probe_dynsub"}
+                                      "aloha_probe_dynsub", "aloha_probe_dma_copy",
+                                      "aloha_probe_dma_doublebuf", "aloha_probe_dma_tblread",
+                                      "aloha_probe_dma_stages"}
 
 
 def test_dispatch_routes_by_device():
@@ -162,11 +169,21 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
                                                             device="meta"), 1)
     with pytest.raises(ValueError):
         probe_dynsub.dynsub(blocks, 1)
+    with pytest.raises(ValueError):
+        dma_bisect.dma_copy(blocks, "copy")
+    with pytest.raises(ValueError):
+        dma_bisect_doublebuf.doublebuf(blocks)
+    with pytest.raises(ValueError):
+        dma_bisect_tblread.tblread(torch.zeros((13, 64, 128), dtype=torch.int32, device="meta"),
+                                   blocks)
+    with pytest.raises(ValueError):
+        dma_bisect_stages.stages(p, 4)
 
 
 @pytest.mark.parametrize("module", ["op_probe", "stream_prof", "stream_prof2", "stream_prof3",
                                     "probe_mxu", "probe_mxu_parts", "probe_dynstage",
-                                    "probe_dynsub"])
+                                    "probe_dynsub", "dma_bisect", "dma_bisect_doublebuf",
+                                    "dma_bisect_tblread", "dma_bisect_stages"])
 def test_probe_entry_points_refuse_to_run_without_cuda(module):
     """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
     no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
