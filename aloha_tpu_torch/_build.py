@@ -54,15 +54,16 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump) on PATH or under CUDA_HOME."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found:
         return found
-    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / name).exists():
+        return str(pathlib.Path(CUDA_HOME) / "bin" / name)
+    raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built")
 
 
 def library_path() -> pathlib.Path:
@@ -90,7 +91,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     out = library_path()
     if out.exists():
         return out
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -118,6 +119,23 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return so
+
+
+def sass_counts(kernel: str, opcodes) -> dict:
+    """{opcode: count} of the SASS instructions of the built library's
+    functions whose name contains `kernel` (cuobjdump --dump-sass)."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "--dump-sass", str(build())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = dict.fromkeys(opcodes, 0)
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            words = line.replace(";", " ").split()
+            for op in opcodes:
+                counts[op] += any(w == op or w.startswith(op + ".") for w in words)
+    return counts
 
 
 def check(err: int, name: str) -> None:

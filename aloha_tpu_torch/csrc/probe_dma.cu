@@ -59,6 +59,7 @@ constexpr u32 CHUNK = WORDS * sizeof(u32);  // bytes of one slot: 32 KiB
 constexpr int HALF_ROWS = CHUNK / (LANES * sizeof(u64));  // u64 rows of a chunk: 32
 constexpr int VEC = WORDS / 4 / THREADS;  // uint4 per thread per block: 4
 constexpr size_t BARRIER_BYTES = 16;  // the mbarriers, after the slots
+constexpr int MAX_DEVICES = 64;
 
 // ------------------------------------------------- bulk copies, mbarriers
 __device__ __forceinline__ u32 smem_addr(const void* p) {
@@ -295,20 +296,27 @@ two_slots(const u8* __restrict__ x, u8* __restrict__ y, int nchunks, Op op) {
   if (threadIdx.x == 0) bulk_wait_all();
 }
 
-// nslots slots of CHUNK bytes, then one mbarrier per input slot
+// nslots slots of CHUNK bytes, then one mbarrier per input slot.  The SM
+// count is read, and the kernel's shared-memory size set, once per device
+// (each Op runs in one kernel), not on every call: the host, not the
+// device, held the one-slot pipeline's fixed cost (PERF.md §6, row 16).
 template <class Op>
 cudaError_t launch(int device, void (*kernel)(const u8*, u8*, int, Op), int nslots, int nchunks,
                    void* stream, const void* x, void* y, const Op& op) {
+  static int sms[MAX_DEVICES];  // 0 until the device's first launch
   const size_t smem = nslots * CHUNK + BARRIER_BYTES;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return err;
-  const int grid = nchunks < sms ? nchunks : sms;
+  if (!sms[device]) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    sms[device] = n;
+  }
+  const int grid = nchunks < sms[device] ? nchunks : sms[device];
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const u8*)x, (u8*)y, nchunks, op);
   return cudaGetLastError();
 }

@@ -3,20 +3,20 @@
 A probe launches one CTA per polynomial (or block of rows) with its words
 in shared memory for the whole launch, and repeats a step REPS times on
 them.  Where a TPU script chained K separate calls, the port repeats inside
-one launch instead: a launch of this port costs 20-100 µs of host floor
-(ctypes, `cudaSetDevice` and `cudaFuncSetAttribute` on every call; PERF.md
-§6), so a chain of launches of a few µs of device work each would time the
-host.  Its cost per repetition is a marginal: t(REPS_hi) and t(REPS_lo)
-are each the least, over ITERS tries, of the mean time of BURST launches
-enqueued back to back between two CUDA events, and (t_hi - t_lo) /
-((REPS_hi - REPS_lo) NB_TIME) is the time per polynomial per repetition.  The
-launch's own cost and the loads and stores are the same at both REPS and
-drop out of the difference; the burst keeps the host's enqueue gap out of
-the events (a single launch between two events counts it, and its spread
-swamped the difference of the cheapest probes).  A copy pipeline has no
-repetition to difference: its marginal is over the batch instead
-(`batch_marginal`, t(nb_hi) - t(nb_lo) over nb_hi - nb_lo), which cancels
-the launch's cost the same way.
+one launch instead: a call of this port's wrappers costs 20-100 µs of host
+time (the Python checks, `torch.empty_like`, `dispatch.stream_of`, ctypes
+and the launch; PERF.md §6-7), so a chain of launches of a few µs of device
+work each would time the host.  Its cost per repetition is a marginal:
+t(REPS_hi) and t(REPS_lo) are each the least, over ITERS tries, of the mean
+time of BURST launches enqueued back to back between two CUDA events, and
+(t_hi - t_lo) / ((REPS_hi - REPS_lo) NB_TIME) is the time per polynomial
+per repetition.  The launch's own cost and the loads and stores are the
+same at both REPS and drop out of the difference; the burst keeps the
+host's enqueue gap out of the events (a single launch between two events
+counts it, and its spread swamped the difference of the cheapest probes).
+A copy pipeline has no repetition to difference: its marginal is over the
+batch instead (`batch_marginal`, t(nb_hi) - t(nb_lo) over nb_hi - nb_lo),
+which cancels the launch's cost the same way.
 
 The plain versions' 64-bit products go through `rns_torch`'s 30-bit limbs
 (`mul_lo64`, `mul_hi64`, `mulmod_shoup`, whose operands stay below 4q
@@ -44,6 +44,7 @@ Q, PSI = CFG.moduli[0], CFG.psi[0]
 NB_TIME = 256
 ITERS = 5
 BURST = 4
+GRAPH_CALLS = 16  # calls captured in one graph by `graph_ms`
 M32 = 0xFFFFFFFF
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (the copy pipelines' bound)
 
@@ -160,6 +161,34 @@ def bursts_ms(fn) -> list:
 def time_ms(fn) -> float:
     """The time of one call of fn: the least of `bursts_ms`."""
     return min(bursts_ms(fn))
+
+
+def graph_ms(fn) -> float:
+    """Mean time of one call of fn in a burst of GRAPH_CALLS captured in one
+    CUDA graph and replayed (no host enqueue between them): the least of
+    ITERS replays.  Beside `time_ms` of the same calls, the difference is
+    the host's share of a call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / GRAPH_CALLS)
+    return best
 
 
 def _two_points(run, points: tuple, units: int):

@@ -20,6 +20,7 @@ yardstick is `torch.Tensor.copy_` of the same blocks, timed the same way
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
@@ -34,6 +35,8 @@ MODES = ("copy", "compute")
 NBS = (2048, 8192)
 #: bytes one block moves: read once, written once
 BLOCK_BYTES = 2 * ROWS * LANES * 4
+#: calls per part of `host_us` (fewer than the launches a stream queues)
+HOST_CALLS = 500
 #: INT32 instructions per block of a mode (x*3 + 1 is one IMAD a word)
 OPS = {"copy": 0, "compute": ROWS * LANES}
 
@@ -83,10 +86,10 @@ def dma_copy(x, mode: str):
     check_blocks(x)
     if not dispatch.use_kernel(x):
         return dma_copy_plain(x, mode)
+    check_aligned(x)  # y comes aligned from the allocator
     y = torch.empty_like(x)
-    check_aligned(x, y)
     err = _build.lib().aloha_probe_dma_copy(x.device.index, x.data_ptr(), y.data_ptr(), x.shape[0],
-                                            MODES.index(mode), dispatch.stream_of(x))
+                                            mode == "compute", dispatch.stream_of(x))
     _build.check(err, "aloha_probe_dma_copy")
     dma_copy.launches += 1
     return y
@@ -110,6 +113,67 @@ def measure_library(device, x=None):
     return C.batch_marginal(lambda nb: y[:nb].copy_(x[:nb]), NBS)
 
 
+def measure_split(device, x=None):
+    """{name: {nb: (eager ms, graph ms)}} of one call of the kernel (copy
+    mode) and of `copy_` at nb = NBS, on the first NBS[1] blocks of x:
+    eager is `common.time_ms` (calls enqueued by the host back to back),
+    graph the same calls replayed from one CUDA graph (`common.graph_ms`).
+    Their difference is the host's share of a call; graph time less nb
+    blocks at the graph marginal is the device's fixed cost."""
+    x = blocks(NBS[1], device) if x is None else x
+    y = torch.empty_like(x)
+    fns = {"dma_copy": lambda nb: dma_copy(x[:nb], "copy"),
+           "torch copy_": lambda nb: y[:nb].copy_(x[:nb])}
+    return {name: {nb: (C.time_ms(lambda: fn(nb)), C.graph_ms(lambda: fn(nb))) for nb in NBS}
+            for name, fn in fns.items()}
+
+
+def host_us(device) -> dict:
+    """Host µs per call, on the host clock, of the wrapper and its parts at
+    nb = 1 (about 3 µs of device work, so the host's enqueue sets the pace):
+    the whole wrapper, its checks, `torch.empty_like`, `dispatch.stream_of`
+    and the C entry alone (ctypes, cudaSetDevice, the launch)."""
+    x = blocks(1, device)
+    y = torch.empty_like(x)
+    lib, stream = _build.lib(), dispatch.stream_of(x)
+    parts = {
+        "wrapper": lambda: dma_copy(x, "copy"),
+        "checks": lambda: (_check_mode("copy"), check_blocks(x), dispatch.use_kernel(x),
+                           check_aligned(x)),
+        "empty_like": lambda: torch.empty_like(x),
+        "stream_of": lambda: dispatch.stream_of(x),
+        "C entry": lambda: lib.aloha_probe_dma_copy(x.device.index, x.data_ptr(), y.data_ptr(),
+                                                    1, 0, stream),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        out[name] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def split_report(split: dict, card: str) -> list:
+    """Lines of `measure_split`: per call, eager and graph µs at both nb,
+    the graph marginal per block and the fixed costs (device: graph
+    intercept; host: eager - graph)."""
+    lo, hi = NBS
+    lines = []
+    for name, t in split.items():
+        (e_lo, g_lo), (e_hi, g_hi) = t[lo], t[hi]
+        ns = (g_hi - g_lo) * 1e6 / (hi - lo)
+        lines.append(f"split {name}: eager {e_lo * 1e3:.2f} / {e_hi * 1e3:.2f} us, graph "
+                     f"{g_lo * 1e3:.2f} / {g_hi * 1e3:.2f} us at nb={lo}/{hi}; graph marginal "
+                     f"{ns:.3f} ns per block, device fixed {g_lo * 1e3 - lo * ns / 1e3:.2f} us, "
+                     f"host over device {(e_lo - g_lo) * 1e3:.2f} / {(e_hi - g_hi) * 1e3:.2f} us "
+                     f"on {card}")
+    return lines
+
+
 def report(label: str, m: tuple, nbytes: int, card: str, nbs=NBS, unit: str = "block",
            bound=None) -> str:
     """One line of a measurement m = (ns, t_lo ms, t_hi ms, spread ms): the
@@ -131,6 +195,10 @@ def main(argv=None):
     for mode, *m in measure(chosen, dev, x):
         print(report(f"dma_copy {mode}", m, BLOCK_BYTES, card), flush=True)
     print(report("torch copy_", measure_library(dev, x), BLOCK_BYTES, card), flush=True)
+    for line in split_report(measure_split(dev, x), card):
+        print(line, flush=True)
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in host_us(dev).items())
+    print(f"host us per call at nb=1: {parts} on {card}", flush=True)
 
 
 if __name__ == "__main__":

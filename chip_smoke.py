@@ -7,7 +7,8 @@ Phases, each printing its own line; any failure exits nonzero:
   1. device: requires CUDA (there is no CPU fallback); prints the card
      as `nvidia-smi --query-gpu=name,power.limit` gives it;
   2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
-     per source, all at once) into aloha_tpu_torch/_build/;
+     per source, all at once) into aloha_tpu_torch/_build/; the rate
+     kernel's SASS (cuobjdump) holds IGMMA and no IMMA;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -59,21 +60,26 @@ Phases, each printing its own line; any failure exits nonzero:
      probe_ops.cu, csrc/probe_stages.cu, csrc/probe_mxu.cu, csrc/
      probe_dyn.cu), each kernel in every variant or mode (op_probe v0-v14,
      the forward transforms, stream_prof's three modes, stream_prof2's four
-     modes at 2 and 13 stages, the int8 rate probe, the three parts of a
-     tensor-core transform, the lane and row stages under a runtime index)
-     against its plain version (torch.equal) at the main path's shape,
-     nb (or BP) = 256, and its lower REPS, then at nb=8, 3 repetitions
-     (timed; the rate probe at BP=256, 1 repetition, beside one
-     torch._int_mm of the same products); then the probes' own measurement
-     at nb=256: the marginal ns per polynomial (block) per repetition of
-     each, beside its bound (int8 MACs over the tensor-core peak, INT32
-     instructions over the integer issue peak, the larger), with all eight
-     kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
+     modes at 2 and 13 stages, the int8 rate probe on wgmma, the three
+     parts of a tensor-core transform, the lane and row stages under a
+     runtime index) against its plain version (torch.equal) at the main
+     path's shape, nb (or BP) = 256, and its lower REPS, the rate probe
+     also at BP = 1, 2, 3 and 133 with 0, 1 and 3 repetitions, then at
+     nb=8, 3 repetitions (timed; the rate probe at BP=256, 1 repetition
+     with w laid out once, eager and in a CUDA-graph burst, beside one
+     torch._int_mm of the same products timed both ways); then the
+     probes' own measurement at nb=256: the marginal ns per polynomial
+     (block) per repetition of each, beside its bound (int8 MACs over the
+     tensor-core peak, INT32 instructions over the integer issue peak, the
+     larger), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
      row-pair swap, the table read, 4 and 7 NTT lane stages) against their
      plain versions at the scripts' batches (16 or 32), at nb=133 and at
-     the timed lower nb (2048 blocks, 1024 polynomials; timed there), and
-     torch copy_ of the same blocks; on the main path, the marginal ns per
+     the timed lower nb (2048 blocks, 1024 polynomials; timed there;
+     dma_copy also at nb = 1, 131 and 132, and timed eager and in a graph
+     burst), and torch copy_ of the same blocks both ways; on the main
+     path, the host/device split of dma_copy's and copy_'s fixed cost
+     (eager and graph at 2048 and 8192 blocks), the marginal ns per
      block (polynomial) over the batch between 2048 and 8192 blocks (1024
      and 4096 polynomials), beside its bound (bytes in and out over the HBM
      rate; the stages' INT32 instructions, the larger), the rate in GB/s,
@@ -101,6 +107,9 @@ GRID_NB = 64  # polynomials of the grid-kernel cases
 RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
 PROBE_NB, PROBE_REPS = 8, 3  # polynomials and repetitions of the probes' timed comparisons
+#: (BP, reps) the wgmma rate kernel is held at: one 64-row tile, a whole
+#: 128-row tile, a whole and a half tile, 133 tiles (more CTAs than SMs)
+RATE_SHAPES = [(bp, r) for bp in (1, 2, 3, 133) for r in (0, 1, 3)]
 
 
 def fail(msg: str):
@@ -134,6 +143,10 @@ def phase_build():
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {_build.library_path().name}",
           flush=True)
+    sass = _build.sass_counts("mxu_rate_kernel", ("IGMMA", "IMMA"))
+    print(f"build: SASS of the rate kernel: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
+    if not sass["IGMMA"] or sass["IMMA"]:
+        fail(f"the rate kernel is not on integer warpgroup products alone: {sass}")
 
 
 def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -1024,59 +1037,39 @@ def dma_work(nb: int, block_bytes: int, once_bytes: int, ops_per_block: int):
     return nb * block_bytes + once_bytes, nb * ops_per_block, "int32"
 
 
-def graph_ms(fn, calls: int = 16) -> float:
-    """Mean time of one call of fn in a burst of `calls` captured in one CUDA
-    graph (no host enqueue between them): the least of 5 replays."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    best = float("inf")
-    for _ in range(5):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        best = min(best, s.elapsed_time(e) / calls)
-    return best
-
-
 def _library_rate(card: str, results: dict, x, w):
     """torch._int_mm of the rate probe's products ([x_0 ... x_7] (M, 1024)
-    by Wcat (1024, 1024)), Wcat row-major and column-major (K contiguous,
-    the layout int8 GEMMs take): its accumulators against the plain
-    version's, its time in a graph burst; the faster layout is the
-    yardstick.  The port never calls it."""
+    by the column-major Wcat (1024, 1024), `probe_mxu.int_mm_operands`):
+    its accumulators against the plain version's, its time eager and in a
+    graph burst.  The port never calls it."""
     import torch
 
-    from aloha_tpu_torch.probes import probe_mxu
+    from aloha_tpu_torch.probes import common, probe_mxu
 
-    M = x.shape[1]
-    X = x.permute(1, 0, 2).reshape(M, 8 * 128).contiguous()
-    Wcat = w.permute(1, 0, 2).reshape(128, 8 * 128).repeat(8, 1).contiguous()
-    best = float("inf")
-    for layout, B in (("row-major", Wcat), ("column-major", Wcat.t().contiguous().t())):
-        acc = torch._int_mm(X, B).reshape(M, 8, 128).permute(1, 0, 2)
-        if not torch.equal(acc.to(torch.int64), probe_mxu.accumulators_plain(x, w)):
-            fail(f"torch._int_mm's accumulators ({layout}) differ from the rate probe's plain ones")
-        ms = graph_ms(lambda: torch._int_mm(X, B))
-        print(f"library torch._int_mm ({M}, 1024) x (1024, 1024) {layout} int8 -> int32: "
-              f"{ms * 1e3:.2f} us per call "
-              f"({2 * probe_mxu.MACS * M / 64 / (ms * 1e-3) / 1e12:.1f} TOP/s) on {card}",
-              flush=True)
-        best = min(best, ms)
-    results.setdefault("library", {})["probe_mxu"] = best
+    X, Wcat = probe_mxu.int_mm_operands(x, w)
+    acc = torch._int_mm(X, Wcat).reshape(x.shape[1], 8, 128).permute(1, 0, 2)
+    if not torch.equal(acc.to(torch.int64), probe_mxu.accumulators_plain(x, w)):
+        fail("torch._int_mm's accumulators differ from the rate probe's plain ones")
+    eager_us = time_us(lambda: torch._int_mm(X, Wcat))
+    graph_us = common.graph_ms(lambda: torch._int_mm(X, Wcat)) * 1e3
+    print(f"library torch._int_mm ({x.shape[1]}, 1024) x (1024, 1024) column-major int8 -> "
+          f"int32: eager {eager_us:.2f} us, graph {graph_us:.2f} us per call "
+          f"({2 * probe_mxu.MACS * x.shape[1] / 64 / (eager_us * 1e-6) / 1e12:.1f} TOP/s eager) "
+          f"on {card}", flush=True)
+    results.setdefault("library", {})["probe_mxu"] = eager_us / 1e3
+    results.setdefault("library_graph", {})["probe_mxu"] = graph_us / 1e3
+
+
+def graph_check(results: dict, card: str, kernel: str, label: str, fn):
+    """The graph-burst time of one call of the kernel's case `label`, beside
+    its eager time from `check`."""
+    from aloha_tpu_torch.probes import common
+
+    g_us = common.graph_ms(fn) * 1e3
+    k_us = next(r[2] for r in results[kernel] if r[0] == label)
+    print(f"kernel {kernel} {label}: eager {k_us:.2f} us, graph {g_us:.2f} us per call on {card}",
+          flush=True)
+    results.setdefault("graph", {})[kernel] = g_us / 1e3
 
 
 def phase_probes(card: str, dev, results: dict):
@@ -1126,8 +1119,14 @@ def phase_probes(card: str, dev, results: dict):
 
     # the tensor-core and runtime-stage probes: (kernel, label, inputs(nb),
     # wrapper(*inputs, reps), plain(*inputs, reps), work(nb, reps), REPS)
-    more = [("probe_mxu", "rate", lambda nb: probe_mxu.data(nb, dev), probe_mxu.digit_products,
-             probe_mxu.digit_products_plain, rate_work, probe_mxu.REPS)]
+    def rate_inputs(nb):
+        x, w = probe_mxu.data(nb, dev)
+        return x, w, probe_mxu.w_image(w)  # w laid out once, outside the timed launches
+
+    more = [("probe_mxu", "rate", rate_inputs,
+             lambda x, w, image, r: probe_mxu.launch_rate(x, image, r),
+             lambda x, w, image, r: probe_mxu.digit_products_plain(x, w, r), rate_work,
+             probe_mxu.REPS)]
     more += [("probe_mxu_parts", v, lambda nb: (probe_mxu_parts.data(nb, dev),),
               lambda x, r, v=v: probe_mxu_parts.parts(x, v, r),
               lambda x, r, v=v: probe_mxu_parts.parts_plain(x, v, r),
@@ -1148,15 +1147,27 @@ def phase_probes(card: str, dev, results: dict):
         results.setdefault(kernel, []).append((f"{label} nb={nb} reps={r}", err))
     print(f"probes: {len(more)} tensor-core and runtime-stage cases equal at nb={nb}, their "
           f"lower REPS, in {time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    # timed at a small shape; the rate probe also at the measured BP with one
-    # repetition, beside the library call that computes its products
+    # the rate kernel through its entry point on whole and half 128-row tiles
+    for bp, r in RATE_SHAPES:
+        x, w = probe_mxu.data(bp, dev, seed=bp + r)
+        err = compare("probe_mxu", f"rate nb={bp} reps={r}",
+                      lambda: probe_mxu.digit_products(x, w, r),
+                      lambda: probe_mxu.digit_products_plain(x, w, r))
+        results.setdefault("probe_mxu", []).append((f"rate nb={bp} reps={r}", err))
+    # timed at a small shape (1 warm-up, 3 calls); the rate probe also at the
+    # measured BP with one repetition, timed as its library call is (3
+    # warm-ups, 15 calls, and in a graph burst)
     for kernel, label, inputs, run, plain, work, _ in more:
-        shapes = [(PROBE_NB, R)] + ([(nb, 1)] if kernel == "probe_mxu" else [])
-        for small, r in shapes:
+        shapes = [(PROBE_NB, R, 1, 3)] + ([(nb, 1, 3, 15)] if kernel == "probe_mxu" else [])
+        for small, r, warmup, iters in shapes:
             args = inputs(small)
             check(results, card, kernel, f"{label} nb={small} reps={r}", lambda: run(*args, r),
-                  lambda: plain(*args, r), work(small, r), 1, 3)
-    _library_rate(card, results, *probe_mxu.data(nb, dev))
+                  lambda: plain(*args, r), work(small, r), warmup, iters)
+    x, w, image = rate_inputs(nb)
+    graph_check(results, card, "probe_mxu", f"rate nb={nb} reps=1",
+                lambda: probe_mxu.launch_rate(x, image, 1))
+    _library_rate(card, results, x, w)
+    del x, w, image
 
     # the copy pipelines: (kernel, label, wrapper(x), plain(x), inputs, the
     # compared batches, the last of them also timed, work(nb)); the inputs
@@ -1164,7 +1175,7 @@ def phase_probes(card: str, dev, results: dict):
     t0 = time.perf_counter()
     xb, xp, tt = D.blocks(D.NBS[1], dev), common.resident_data(DS.NBS[1], dev), DT.table(dev)
     dma = [("probe_dma_copy", m, lambda x, m=m: D.dma_copy(x, m),
-            lambda x, m=m: D.dma_copy_plain(x, m), xb, (16, 133, D.NBS[0]),
+            lambda x, m=m: D.dma_copy_plain(x, m), xb, (1, 16, 131, 132, 133, D.NBS[0]),
             lambda nb, m=m: dma_work(nb, D.BLOCK_BYTES, 0, D.OPS[m])) for m in D.MODES]
     dma += [("probe_dma_doublebuf", "roll-swap", DB.doublebuf, DB.doublebuf_plain, xb,
              (32, 133, D.NBS[0]), lambda nb: dma_work(nb, D.BLOCK_BYTES, 0, DB.OPS)),
@@ -1184,10 +1195,13 @@ def phase_probes(card: str, dev, results: dict):
               work(b))
     y = torch.empty_like(xb)
     b = D.NBS[0]
+    graph_check(results, card, "probe_dma_copy", f"copy nb={b}", lambda: D.dma_copy(xb[:b], "copy"))
     lib_us = time_us(lambda: y[:b].copy_(xb[:b]))
+    lib_graph_us = common.graph_ms(lambda: y[:b].copy_(xb[:b])) * 1e3
     results.setdefault("library", {})["probe_dma_copy"] = lib_us / 1e3
-    print(f"library torch copy_ nb={b}: {lib_us:.1f} us per call "
-          f"({b * D.BLOCK_BYTES / lib_us / 1e3:.1f} GB/s) on {card}", flush=True)
+    results.setdefault("library_graph", {})["probe_dma_copy"] = lib_graph_us / 1e3
+    print(f"library torch copy_ nb={b}: eager {lib_us:.2f} us, graph {lib_graph_us:.2f} us per "
+          f"call ({b * D.BLOCK_BYTES / lib_us / 1e3:.1f} GB/s eager) on {card}", flush=True)
     print(f"probes: {len(dma)} copy-pipeline cases equal at the scripts' batches, nb=133 and "
           f"the timed lower nb, in {time.perf_counter() - t0:.1f} s with the inputs drawn on "
           f"{card}", flush=True)
@@ -1239,6 +1253,7 @@ def phase_probes(card: str, dev, results: dict):
     }
     launches = {name: fn.launches for name, fn in counters.items()}
     lib = D.measure_library(dev, xb)
+    split = D.measure_split(dev, xb)
     del xb, xp, y
     for kernel, rows in copies.items():
         nbytes, nbs, unit = ((DS.POLY_BYTES, DS.NBS, "polynomial") if kernel == "probe_dma_stages"
@@ -1248,6 +1263,8 @@ def phase_probes(card: str, dev, results: dict):
                   flush=True)
             results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (m[0], bound_ns[0])
     print("library " + D.report("torch copy_", lib, D.BLOCK_BYTES, card), flush=True)
+    for line in D.split_report(split, card):
+        print("probe " + line, flush=True)
     for kernel, rows in measured.items():
         for label, ns, t_lo, t_hi, spread, reps, bound_ns in rows:
             extra = ""
@@ -1281,8 +1298,9 @@ def phase_probes(card: str, dev, results: dict):
 def step2_order(kernels) -> list:
     """The kernels in the order a redesign should take them: first those
     slower than their one-call library equivalent, by the factor ms /
-    library_ms; then the rest by the time the main paths lose to the bound,
-    launches x (ms - bound_ms)."""
+    library_ms (both eager: calls enqueued back to back between two CUDA
+    events, as every kernel's ms); then the rest by the time the main paths
+    lose to the bound, launches x (ms - bound_ms)."""
     lib = sorted((k for k in kernels if k["library_ms"] and k["ms"] > k["library_ms"]),
                  key=lambda k: -k["ms"] / k["library_ms"])
     rest = sorted((k for k in kernels if k not in lib),
@@ -1382,6 +1400,9 @@ def main():
                  "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
                  "bound_ms": b_us / 1e3, "bound_by": b_by,
                  "library_ms": results.get("library", {}).get(name), "shape": main_case}
+        if name in results.get("graph", {}):
+            entry["graph_ms"] = results["graph"][name]
+            entry["library_graph_ms"] = results.get("library_graph", {}).get(name)
         if also:
             entry["also_replaces"] = also
         if name in results.get("marginal", {}):

@@ -399,6 +399,41 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
         assert torch.equal(got, plain(*args, r)), (nb, r)
 
 
+#: (BP, reps) of the wgmma rate kernel: one 64-row tile, a full 128-row tile,
+#: a full and a half tile, 133 tiles (more CTAs than SMs, the last half),
+#: each at 0, 1 and 3 repetitions; the measured BP at one
+RATE_SHAPES = ([(bp, r) for bp in (1, 2, 3, 133) for r in (0, 1, 3)]
+               + [(probe_common.NB_TIME, 1)])
+
+
+@pytest.mark.parametrize("bp,reps", RATE_SHAPES)
+def test_rate_kernel_matches_plain_at_every_tile_shape(dev, bp, reps):
+    """csrc/probe_mxu.cu's wgmma rate kernel equals its plain version on
+    whole and half tiles, at 0, 1 and 3 repetitions; w laid out once by
+    `w_image` gives the same words as through `digit_products`."""
+    x, w = probe_mxu.data(bp, dev, seed=bp + reps)
+    before = probe_mxu.digit_products.launches
+    got = probe_mxu.digit_products(x, w, reps)
+    again = probe_mxu.launch_rate(x, probe_mxu.w_image(w), reps)
+    torch.cuda.synchronize()
+    assert probe_mxu.digit_products.launches == before + 2
+    assert torch.equal(got, probe_mxu.digit_products_plain(x, w, reps)), (bp, reps)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("mode", dma_bisect.MODES)
+@pytest.mark.parametrize("nb", [1, 131, 132, 133, 2048])
+def test_dma_copy_matches_plain_around_the_grid(dev, nb, mode):
+    """csrc/probe_dma.cu's one-slot pipeline equals its plain version at a
+    batch of one block, around one block per SM and at the timed batch."""
+    x = dma_bisect.blocks(nb, dev, seed=nb)
+    before = dma_bisect.dma_copy.launches
+    got = dma_bisect.dma_copy(x, mode)
+    torch.cuda.synchronize()
+    assert dma_bisect.dma_copy.launches == before + 1
+    assert torch.equal(got, dma_bisect.dma_copy_plain(x, mode)), (nb, mode)
+
+
 DMA_PROBE_CASES = ([("copy", m) for m in dma_bisect.MODES] + [("doublebuf", None),
                    ("tblread", None)] + [("stages", k) for k in (0, 1, 4, 7)])
 

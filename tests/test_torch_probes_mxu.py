@@ -7,7 +7,8 @@ the body wrapped in its own `pl.pallas_call(..., interpret=True)`:
 - `probe_mxu`: tools/probe_mxu.py's `kernel`, imported with BP=2 in the
   environment; the TPU chain is REPS calls.  Word-exact, and equal to a
   NumPy int64 oracle; `torch._int_mm`'s accumulators equal the plain
-  version's before the combine;
+  version's before the combine, and the kernel's image of w (`w_image`)
+  equals a NumPy model of the swizzled layout its descriptors read;
 - `probe_mxu_parts`: `make_stages` executed from tools/probe_mxu_parts.py's
   source (the script times at import), with `M._tables_jax` tables, REPS
   steps in one call over (BP, 64, 128), no chunk pipeline.  `full` and
@@ -36,7 +37,6 @@ from aloha_tpu import ntt_np
 from aloha_tpu.config import DEFAULT_CONFIG as JCFG
 from aloha_tpu.ops import ntt_mxu as M
 from aloha_tpu_torch import convert as cv
-from aloha_tpu_torch.ops import ntt_mxu
 from aloha_tpu_torch.probes import probe_dynstage, probe_dynsub, probe_mxu, probe_mxu_parts
 
 torch.set_num_threads(2)
@@ -115,18 +115,63 @@ def test_probe_mxu_against_the_tpu_kernel(reps):
     assert np.array_equal(got, _mxu_oracle(x.numpy(), w.numpy(), reps))
 
 
+def _w_image_model(w):
+    """NumPy: the bytes the rate kernel's B descriptors read for w_j, K-major
+    (row n = column n of w_j) with the 128-byte swizzle: byte b of logical
+    16-byte chunk c of row n at 128 n + 16 (c ^ (n mod 8)) + b."""
+    img = np.empty((8, LANES * LANES), dtype=np.int8)
+    for j in range(8):
+        for n in range(LANES):
+            for c in range(LANES // 16):
+                at = LANES * n + 16 * (c ^ (n % 8))
+                img[j, at:at + 16] = w[j, 16 * c:16 * c + 16, n]
+    return img.reshape(-1)
+
+
 def test_probe_mxu_library_call_gives_the_accumulators():
     """torch._int_mm of [x_0 ... x_7] (M, 1024) and Wcat (1024, 1024),
     Wcat[k 128 + a, j 128 + b] = w_j[a, b], holds acc_j in columns j 128 ..;
-    the kernel's fragment order of w is ntt_mxu.frag_lanes'."""
+    the kernel's image of w is w_j^T, K-major, swizzled as its wgmma
+    descriptors read it."""
     x, w = probe_mxu.data(BP, CPU)
     M_ = x.shape[1]
     X = x.permute(1, 0, 2).reshape(M_, 8 * LANES)
     Wcat = w.permute(1, 0, 2).reshape(LANES, 8 * LANES).repeat(8, 1)
     lib = torch._int_mm(X, Wcat).reshape(M_, 8, LANES).permute(1, 0, 2)
     assert torch.equal(lib.to(torch.int64), probe_mxu.accumulators_plain(x, w))
-    assert np.array_equal(probe_mxu.fragments(w).numpy(),
-                          ntt_mxu.frag_lanes(w.numpy()).reshape(-1))
+    assert np.array_equal(probe_mxu.w_image(w).numpy(), _w_image_model(w.numpy()))
+
+
+def _fragment_places(warp, lane):
+    """csrc/probe_mxu.cu's write_planes for one thread: {(row, column):
+    byte offset in a plane of the warpgroup's 64 rows} of its 64
+    accumulator words d[4i + 2h + c] (rows 16 warp + g + 8h, columns 8i +
+    2t + c), at the swizzled places it stores them."""
+    g, t = lane >> 2, lane & 3
+    places = {}
+    for h in range(2):
+        row = 16 * warp + g + 8 * h
+        for i in range(16):
+            off = (((i >> 1) ^ g) << 4) + ((i & 1) << 3)
+            for c in range(2):
+                places[(row, 8 * i + 2 * t + c)] = row * LANES + 2 * t + off + c
+    return places
+
+
+def test_rate_kernel_writes_every_byte_at_its_swizzled_place():
+    """The wgmma accumulator layout as the rate kernel writes it back: the
+    128 threads of a warpgroup cover the 64 x 128 words once, and each byte
+    lands where the 128-byte swizzle (the TMA map and the A descriptors)
+    puts (row, column): chunk (column / 16) ^ (row mod 8)."""
+    places = {}
+    for warp in range(4):
+        for lane in range(32):
+            for rc, off in _fragment_places(warp, lane).items():
+                assert rc not in places
+                places[rc] = off
+    assert len(places) == 64 * LANES
+    for (row, col), off in places.items():
+        assert off == row * LANES + 16 * ((col >> 4) ^ (row % 8)) + (col & 15)
 
 
 # ------------------------------------------------------- probe_mxu_parts
@@ -332,6 +377,11 @@ def test_new_probe_wrappers_reject_bad_arguments():
         probe_mxu.digit_products(x, w[:4], 1)
     with pytest.raises(ValueError, match="reps"):
         probe_mxu.digit_products(x, w, -1)
+    image = probe_mxu.w_image(w)
+    with pytest.raises(ValueError, match="card"):
+        probe_mxu.launch_rate(x, image, 1)
+    with pytest.raises(ValueError, match="shape"):
+        probe_mxu.launch_rate(x, image[:-16], 1)
     p = probe_mxu_parts.data(1, CPU)
     with pytest.raises(ValueError, match="variant"):
         probe_mxu_parts.parts(p, "dots", 1)
