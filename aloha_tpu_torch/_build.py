@@ -34,7 +34,7 @@ SIGNATURES = {
     "aloha_ntt_grid": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_ks_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
-    "aloha_ntt_mxu": [_I] + [_P] * 9 + [_I] * 5 + [_P],
+    "aloha_ntt_mxu": [_I] + [_P] * 8 + [_I] * 5 + [_P],
     "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_stage_modes": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],

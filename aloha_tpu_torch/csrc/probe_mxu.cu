@@ -1,4 +1,6 @@
-// Cost probes of csrc/ntt_mxu.cu's tensor-core transform, on resident data.
+// Cost probes of the tensor-core transform, on resident data: the parts
+// measure the mma.sync design of csrc/mxu_core.cuh (csrc/ntt_mxu.cu's until
+// it moved to wgmma), the rate the wgmma products it runs on now.
 //
 // Replaces two TPU kernels:
 //   tools/probe_mxu.py:58 (`kernel` :30-49): the int8 matmul rate of the
@@ -10,7 +12,7 @@
 //   tools/probe_mxu_parts.py:123 (`build(variant)` -> `body` :96, variants
 //     of `make_stages` :39-88): one forward 4-step transform per repetition
 //     -> aloha_probe_mxu_parts, in three variants:
-//       full  ntt_mxu.cu's own steps (csrc/mxu_core.cuh), canonical after
+//       full  the mma.sync steps (csrc/mxu_core.cuh), canonical after
 //             every repetition (the TPU's _fwd_stages(lazy=False));
 //       mxu   the digit splits and both products, with the XOR epilogue in
 //             place of the folds and the twiddle: the products' share;
@@ -27,7 +29,7 @@
 // marginal over REPS is the cost of one repetition (probes/common.py).
 //
 // The rate probe on wgmma (the rate a wgmma transform can reach; the
-// mma.sync product loop of ntt_mxu.cu reaches 467.8-470.9 T-MAC/s on the
+// mma.sync product loop of csrc/mxu_core.cuh reaches 467.8-470.9 T-MAC/s on the
 // same products, PERF.md).  A CTA owns a tile of 128 rows of x in all 8 planes:
 // two warpgroups of 64 rows each (the wgmma M), each on its own with its
 // own rows, w ring and mbarriers.  The whole tile is resident for all
@@ -230,9 +232,10 @@ __device__ __forceinline__ u64 vpu_word(u64 x, int idx, int b_row, const u64* __
   return fold_final(fold59<true>(e, LANE_BITS, ccol[idx % LANES], q, delta), q, delta);
 }
 
-// x, y: (nb, 2^logn) int64; the forward tables of ntt_mxu.cu at modulus q.
-// The ring comes in at run time, as to ntt_mxu_kernel, so that the steps
-// compile as they do there (a compile-time R unrolls them differently).
+// x, y: (nb, 2^logn) int64; the forward fragment tables at modulus q.
+// The ring comes in at run time, as it did to the mma.sync transform, so
+// that the steps compile as they did there (a compile-time R unrolls them
+// differently).
 template <int VARIANT>
 __global__ void __launch_bounds__(MXU_THREADS, 1)
 mxu_parts_kernel(const u64* __restrict__ x, u64* __restrict__ y, const uint4* __restrict__ af,
@@ -307,8 +310,8 @@ extern "C" int aloha_probe_mxu_rate(int device, const void* x, void* y, const vo
   return (int)cudaGetLastError();
 }
 
-// x, y: (nb, 8192) int64; af, tf, tw, tws, crow, ccol: ntt_mxu.cu's forward
-// tables of q (one modulus); variant: 0 full, 1 mxu, 2 vpu; reps >= 0.
+// x, y: (nb, 8192) int64; af, tf, tw, tws, crow, ccol: ntt_mxu.fragment_tables'
+// forward tables of q (one modulus); variant: 0 full, 1 mxu, 2 vpu; reps >= 0.
 extern "C" int aloha_probe_mxu_parts(int device, const void* x, void* y, const void* af,
                                      const void* tf, const void* tw, const void* tws,
                                      const void* crow, const void* ccol, u64 q, int variant,

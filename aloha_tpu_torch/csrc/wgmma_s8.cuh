@@ -1,8 +1,8 @@
 // int8 warpgroup products on Hopper (sm_90a) and the copies that feed them:
-// shared-memory matrix descriptors, wgmma.mma_async m64n128k32 s32.s8.s8,
-// mbarriers, 1-D bulk copies and 3-D tensor (TMA) copies with the 128-byte
-// swizzle.  csrc/probe_mxu.cu's rate kernel runs on these; they are written
-// for csrc/ntt_mxu.cu's products to include as well.
+// shared-memory matrix descriptors, wgmma.mma_async m64nNk32 s32.s8.s8 (N =
+// 128, 64, 32), mbarriers, 1-D bulk copies and 3-D tensor (TMA) copies with
+// the 128-byte swizzle.  csrc/probe_mxu.cu's rate kernel (N = 128, TMA) and
+// csrc/ntt_mxu.cu's transform (N = 64 or 32, bulk copies) run on these.
 //
 // The layout the descriptors read (K-major, 128-byte swizzle).  Integer
 // wgmma takes no transpose: A (M x K) and B (K x N) both lie K-major, one
@@ -64,6 +64,27 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
       "WAIT: mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@!p bra WAIT; }"
       ::"r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+}
+
+// the same, for the threads with `pred` set only (the others pass at once)
+__device__ __forceinline__ void mbar_wait_if(unsigned long long* bar, unsigned parity, bool pred) {
+  asm volatile(
+      "{ .reg .pred p, q; setp.ne.b32 q, %2, 0;\n"
+      "@!q bra DONE;\n"
+      "WAIT: mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "DONE: }"
+      ::"r"(smem_u32(bar)), "r"(parity), "r"((int)pred)
+      : "memory");
+}
+
+// when pred: one arrival on bar
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar, bool pred) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0]; }"
+      ::"r"(smem_u32(bar)), "r"((int)pred)
       : "memory");
 }
 
@@ -153,9 +174,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // pins the accumulators in program order against the asynchronous product:
 // reads after a wgmma_wait stay after it
-__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 128 int32, fragment layout above) = A (64 x 32) . B (32 x 128)
@@ -182,6 +204,46 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], unsigned long 
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
         "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same for N = 64 and N = 32 (csrc/ntt_mxu.cu: N is the ring's R rows)
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], unsigned long long da,
+                                                   unsigned long long db, int accumulate) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p; }"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], unsigned long long da,
+                                                   unsigned long long db, int accumulate) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p; }"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// m64nNk32 for N = 2 x the accumulator count (32 or 64)
+template <int NACC>
+__device__ __forceinline__ void wgmma_m64k32_s8(int (&d)[NACC], unsigned long long da,
+                                                unsigned long long db, int accumulate) {
+  static_assert(NACC == 16 || NACC == 32, "m64n32 or m64n64");
+  if constexpr (NACC == 32) wgmma_m64n64k32_s8(d, da, db, accumulate);
+  else wgmma_m64n32k32_s8(d, da, db, accumulate);
 }
 
 // ------------------------------------------------------------------ host

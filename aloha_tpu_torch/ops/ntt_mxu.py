@@ -41,8 +41,14 @@ accumulators with `rns_torch`'s exact limb arithmetic.  Its output is
 canonical after every transform; the kernel keeps a lazy window between
 the transforms of a chain and folds once at its end.
 
-Bound on the H100 (estimate, see `csrc/ntt_mxu.cu`): L2 traffic of the
-int8 tables (4 MiB per transform) and mma.sync issue, not HBM.
+The kernel takes both products on `wgmma` in the transposed form (M = the
+128 lanes) and streams each (modulus, direction)'s tables through a ring
+of shared-memory slots by 1-D bulk copies; `table_stream` lays them out
+once as the exact bytes of every slot, in the order the kernel reads them.
+Bound on the H100: 1.0066e8 int8 MACs per transform, 101.7 ns per
+polynomial at the dense int8 peak; each CTA streams the 1.25 MiB of table
+once per transform from L2.  What holds it back is inside the SM, not the
+L2 stream (`csrc/ntt_mxu.cu`, PERF.md).
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ from aloha_tpu_torch.ops import dispatch
 
 LANES = 128
 NDIG = 8  # base-256 digits of a u64
-KERNEL_RINGS = (4096, 8192)  # R a multiple of 32, shared memory within 227 KB
+KERNEL_RINGS = (4096, 8192)  # R = 32 or 64: the N of the kernel's wgmma m64nRk32
+TILE = 16384  # bytes of one stage of the kernel's table stream (one ring slot)
 
 #: One (modulus, direction): row (8, R, 8R) and lane (8, 1024, 128) int8
 #: digit matrices, the twiddle tw (R, 128) and its Shoup companion tws
@@ -221,22 +228,73 @@ def frag_lanes(t: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(f.transpose(0, 5, 1, 6, 3, 2, 4))
 
 
+def swizzle128(rows: np.ndarray) -> np.ndarray:
+    """(..., r, 128) int8 tile rows -> the layout the kernel's wgmma
+    descriptors read (csrc/wgmma_s8.cuh): 16-byte chunk c of row r stored at
+    chunk c ^ (r mod 8)."""
+    r = rows.shape[-2]
+    chunks = rows.reshape(rows.shape[:-1] + (LANES // 16, 16))
+    place = np.arange(LANES // 16)[None, :] ^ (np.arange(r) % 8)[:, None]  # an involution
+    return np.ascontiguousarray(chunks[..., np.arange(r)[:, None], place, :]).reshape(rows.shape)
+
+
+def row_stages(row: np.ndarray) -> np.ndarray:
+    """(8, R, 8R) row digits -> (8 R / 32, 2 R 128) int8: stage (j, p) holds
+    the (R x 128-byte) tiles of k-blocks 2p and 2p + 1 of A_j (row i = row i
+    of A_j, bytes 128 kb .. 128 kb + 127), each swizzled."""
+    nd, R, K = row.shape
+    tiles = swizzle128(row.reshape(nd, R, K // LANES, LANES).transpose(0, 2, 1, 3))
+    return tiles.reshape(nd * K // (2 * LANES), 2 * R * LANES)
+
+
+def lane_stages(lane: np.ndarray) -> np.ndarray:
+    """(8, 1024, 128) lane digits [j, k, c] -> (64, 16384) int8: stage (j, kk)
+    holds the (128 x 128-byte) tile of T_j^T for plane kk (row c = column c
+    of T_j, bytes l = 0..127 of k = 128 kk + l), swizzled."""
+    nd = lane.shape[0]
+    tiles = lane.reshape(nd, NDIG, LANES, LANES).transpose(0, 1, 3, 2)
+    return swizzle128(tiles).reshape(nd * NDIG, TILE)
+
+
+def table_stream(tb: Tables, inverse: bool) -> np.ndarray:
+    """(stages, TILE) int8: the kernel's table stream of one (modulus,
+    direction), each stage the exact bytes of one shared-memory slot, in the
+    order the kernel reads them (rows then lanes forward, lanes then rows
+    inverse).  A row stage's 2 R 128 bytes are padded to TILE."""
+    rows = row_stages(tb.row)
+    rows = np.pad(rows, ((0, 0), (0, TILE - rows.shape[1])))
+    lanes = lane_stages(tb.lane)
+    return np.concatenate([lanes, rows] if inverse else [rows, lanes])
+
+
 @functools.lru_cache(maxsize=16)
 def kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
-    """Stacked per-modulus kernel operands on `device`: fragment-ordered
-    int8 row and lane digits, tw, tws, crow, ccol and q (int64)."""
+    """Stacked per-modulus kernel operands on `device`: the table stream
+    (M, stages x TILE) int8, tw, tws, crow, ccol and q (int64)."""
+    per = [tables_np(n, q, _forward_root(q, r, inverse), inverse) for q, r in zip(qs, roots)]
+    stream = np.stack([table_stream(t, inverse).reshape(-1) for t in per])
+    return (torch.from_numpy(stream).to(device),
+            *(_stack_u64(per, f, device) for f in ("tw", "tws", "crow", "ccol")),
+            torch.tensor(qs, dtype=torch.int64, device=device))
+
+
+def _stack_u64(per, field: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.stack([getattr(t, field).view(np.int64) for t in per])).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def fragment_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
+    """The `mma.sync` parts probe's operands (`probes/probe_mxu_parts`,
+    csrc/mxu_core.cuh) on `device`: fragment-ordered int8 row and lane
+    digits, tw, tws, crow, ccol and q (int64)."""
     per = [tables_np(n, q, _forward_root(q, r, inverse), inverse) for q, r in zip(qs, roots)]
 
-    def stack(f, conv):
-        return torch.from_numpy(np.stack([conv(getattr(t, f)) for t in per])).to(device)
+    def frags(field, order):
+        return torch.from_numpy(np.stack([order(getattr(t, field)).reshape(-1) for t in per]))
 
-    i8 = lambda fn: lambda a: fn(a).reshape(-1)  # noqa: E731
-    u64 = lambda a: a.view(np.int64)  # noqa: E731
-    return (
-        stack("row", i8(frag_rows)), stack("lane", i8(frag_lanes)),
-        stack("tw", u64), stack("tws", u64), stack("crow", u64), stack("ccol", u64),
-        torch.tensor(qs, dtype=torch.int64, device=device),
-    )
+    return (frags("row", frag_rows).to(device), frags("lane", frag_lanes).to(device),
+            *(_stack_u64(per, f, device) for f in ("tw", "tws", "crow", "ccol")),
+            torch.tensor(qs, dtype=torch.int64, device=device))
 
 
 # ----------------------------------------------------------- plain version
@@ -311,11 +369,11 @@ def _launch(x, qs, roots, inverse: bool, k: int, wrapper):
     dispatch.check(x, (M, nb, n), "x")
     if n not in KERNEL_RINGS:
         raise ValueError(f"ring degree {n}: the kernel takes n in {KERNEL_RINGS}")
-    af, tf, tw, tws, crow, ccol, qt = kernel_tables(n, qs, roots, inverse, x.device)
+    stream, tw, tws, crow, ccol, qt = kernel_tables(n, qs, roots, inverse, x.device)
     y = torch.empty_like(x)
     if nb:
         err = _build.lib().aloha_ntt_mxu(
-            x.device.index, x.data_ptr(), y.data_ptr(), af.data_ptr(), tf.data_ptr(),
+            x.device.index, x.data_ptr(), y.data_ptr(), stream.data_ptr(),
             tw.data_ptr(), tws.data_ptr(), crow.data_ptr(), ccol.data_ptr(),
             qt.data_ptr(), M, nb, n.bit_length() - 1, k, int(inverse),
             dispatch.stream_of(x),

@@ -7,8 +7,10 @@ Replaces the TPU kernel of tools/probe_mxu_parts.py:123 (`build(variant)`
 `aloha_probe_mxu_parts` of `csrc/probe_mxu.cu`: REPS forward transforms of
 nb polynomials (8192 words under q0) held in shared memory, each one of
 
-- full: csrc/ntt_mxu.cu's own steps (csrc/mxu_core.cuh), canonical after
-  every repetition: `ntt_np.ntt` applied REPS times;
+- full: the `mma.sync` steps of csrc/mxu_core.cuh (the transform's design
+  before csrc/ntt_mxu.cu moved to `wgmma`; the probe goes on measuring it,
+  with `ntt_mxu.fragment_tables`), canonical after every repetition:
+  `ntt_np.ntt` applied REPS times;
 - mxu: the digit splits and both products, the 8 accumulators xor-folded
   to e and stored as u32(e) | u32(e + 1) << 32 after the rows and
   u32(e) | u32(e ^ 3) << 32 after the lanes: no twiddle, no constants;
@@ -178,8 +180,8 @@ def parts(x, variant: str, reps: int):
     C.check_operand(x, torch.int64, (x.shape[0], C.N), "x")
     if not dispatch.use_kernel(x):
         return parts_plain(x, variant, reps)
-    af, tf, tw, tws, crow, ccol, _ = ntt_mxu.kernel_tables(C.N, (C.Q,), (C.PSI,), False,
-                                                           x.device)
+    af, tf, tw, tws, crow, ccol, _ = ntt_mxu.fragment_tables(C.N, (C.Q,), (C.PSI,), False,
+                                                             x.device)
     y = torch.empty_like(x)
     err = _build.lib().aloha_probe_mxu_parts(
         x.device.index, x.data_ptr(), y.data_ptr(), af.data_ptr(), tf.data_ptr(), tw.data_ptr(),

@@ -7,11 +7,15 @@ Phases, each printing its own line; any failure exits nonzero:
   1. device: requires CUDA (there is no CPU fallback); prints the card
      as `nvidia-smi --query-gpu=name,power.limit` gives it;
   2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
-     per source, all at once) into aloha_tpu_torch/_build/; the rate
-     kernel's SASS (cuobjdump) holds IGMMA and no IMMA;
+     per source, all at once) into aloha_tpu_torch/_build/; the SASS
+     (cuobjdump) of the rate kernel and of the tensor-core transform holds
+     IGMMA and no IMMA;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
+     then ntt_mxu and its chain (k = 1, 2, 3) at N = 4096 and 8192, both
+     directions, nb = 1, 131, 132, 133 and 264, on words at the ends of
+     the fold's range (0, q - 1, 2^63 - 1) and random ones (compared);
   4. serve: three encrypted matrix-vector requests, each a batch of 16
      ciphertexts through he_torch.matvec_bsgs (D=16 diagonals, g=4) and
      rescale, with keys, encodings and encryptions made by the port
@@ -20,10 +24,12 @@ Phases, each printing its own line; any failure exits nonzero:
      port's plain path on CPU tensors, and every kernel launched by the
      requests;
   5. bench: ntt, ntt_grid, ntt_mxu and the chain (k=64) at the bench's
-     own shapes and inputs against their plain versions (torch.equal);
-     then aloha_tpu_torch.bench.run at N=8192, batch 256, the fused chain
-     cut to k=64: each form's NTT/s, bit-exact against the ntt_np chain,
-     with ntt, ntt_grid and both ntt_mxu wrappers launched;
+     own shapes and inputs against their plain versions (torch.equal); the
+     chain's marginal ns per polynomial per transform at nb = 256 (k = 1
+     against k = 9) beside its bound; then aloha_tpu_torch.bench.run at
+     N=8192, batch 256, the fused chain cut to k=64: each form's NTT/s,
+     bit-exact against the ntt_np chain, with ntt, ntt_grid and both
+     ntt_mxu wrappers launched;
   6. shard: ntt_stream.transform_with_tables (the NTT kernel fed a shard's
      tables) for D in {1, 2, 4, 8}, shards 0 and D-1, both directions, at
      N=8192, nb=64, q0, against its plain version; then
@@ -143,10 +149,12 @@ def phase_build():
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {_build.library_path().name}",
           flush=True)
-    sass = _build.sass_counts("mxu_rate_kernel", ("IGMMA", "IMMA"))
-    print(f"build: SASS of the rate kernel: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
-    if not sass["IGMMA"] or sass["IMMA"]:
-        fail(f"the rate kernel is not on integer warpgroup products alone: {sass}")
+    for kernel, what in (("mxu_rate_kernel", "the rate kernel"),
+                         ("ntt_mxu_kernel", "the tensor-core transform")):
+        sass = _build.sass_counts(kernel, ("IGMMA", "IMMA"))
+        print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
+        if not sass["IGMMA"] or sass["IMMA"]:
+            fail(f"{what} is not on integer warpgroup products alone: {sass}")
 
 
 def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -386,7 +394,43 @@ def phase_kernels(card: str, dev):
             case("ntt_mxu_chain", label,
                  lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
                  lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv), mxu_work(16, 1, 3))
+    mxu_shapes(dev, results)
     return results
+
+
+def mxu_shapes(dev, results: dict):
+    """ntt_mxu and its chain (k = 1, 2, 3) against their plain versions at
+    both rings, both directions and nb = 1, 131, 132, 133, 264 (one CTA,
+    about one wave of 132 SMs, two waves): polynomial p all zeros, all
+    q - 1, all 2^63 - 1 or random words below 2^63, by p mod 4."""
+    import numpy as np
+    import torch
+
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_mxu
+
+    t0, q, count = time.perf_counter(), CFG.moduli[0], 0
+    for n in ntt_mxu.KERNEL_RINGS:
+        for inv in (False, True):
+            root = pow((CFG.ipsi if inv else CFG.psi)[0], CFG.n // n, q)
+            for nb in (1, 131, 132, 133, 264):
+                a = np.random.default_rng(nb).integers(0, (1 << 63) - 1, size=(nb, n),
+                                                       dtype=np.int64)
+                a[0::4], a[1::4], a[2::4] = 0, q - 1, (1 << 63) - 1
+                x = torch.from_numpy(a).to(dev)
+                label = f"{'inv' if inv else 'fwd'} q0 n={n} nb={nb}"
+                err = compare("ntt_mxu", label,
+                              lambda: ntt_mxu.transform(x[None], (q,), (root,), inv),
+                              lambda: ntt_mxu.transform_plain(x[None], (q,), (root,), inv))
+                results.setdefault("ntt_mxu", []).append((label, err))
+                for k in (1, 2, 3):
+                    err = compare("ntt_mxu_chain", f"{label} k={k}",
+                                  lambda: ntt_mxu.chain(x, q, root, k, inv),
+                                  lambda: ntt_mxu.chain_plain(x, q, root, k, inv))
+                    results.setdefault("ntt_mxu_chain", []).append((f"{label} k={k}", err))
+                count += 4
+    print(f"kernels: ntt_mxu and its chain equal at {count} shapes (n, direction, nb, k) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_bench(card: str, dev, results: dict):
@@ -416,6 +460,7 @@ def phase_bench(card: str, dev, results: dict):
     check(results, card, "ntt_mxu_chain", f"fwd q0 k={k} nb={nb} bench",
           lambda: ntt_mxu.chain(x, q, psi, k, False),
           lambda: ntt_mxu.chain_plain(x, q, psi, k, False), mxu_work(nb, 1, k), 0, 1)
+    chain_marginal(card, x, q, psi, results)
 
     # the main path: counts start at 0 here
     counters = {"ntt": ntt_stream.transform, "ntt_grid": ntt_pallas.transform,
@@ -437,6 +482,29 @@ def phase_bench(card: str, dev, results: dict):
         if count == 0:
             fail(f"kernel {name} was not launched by the bench")
     return launches
+
+
+#: chain lengths the chain's per-transform marginal is taken between
+MXU_MARGINAL_K = (1, 9)
+
+
+def chain_marginal(card: str, x, q: int, psi: int, results: dict):
+    """The chain's marginal ns per polynomial per transform on x (nb =
+    probes.common.NB_TIME polynomials): one launch of k transforms at the
+    two lengths of MXU_MARGINAL_K (the least of the probes' bursts), beside
+    the bound of one transform (int8 MACs over the dense peak)."""
+    from aloha_tpu_torch.ops import ntt_mxu
+    from aloha_tpu_torch.probes import common
+
+    ns, t_lo, t_hi, spread = common.marginal(lambda k: ntt_mxu.chain(x, q, psi, k, False),
+                                             MXU_MARGINAL_K)
+    bound_ns = mxu_work(1, 1)[1] / PEAK["int8"] * 1e9
+    lo, hi = MXU_MARGINAL_K
+    print(f"kernel ntt_mxu_chain marginal: {ns:.3f} ns per polynomial per transform "
+          f"bound_ns={bound_ns:.3f} (operations) t(k={lo})={t_lo:.4f} ms t(k={hi})={t_hi:.4f} ms "
+          f"spread={spread:.4f} ms nb={x.shape[0]} on {card}", flush=True)
+    results.setdefault("marginal", {}).setdefault("ntt_mxu_chain", {})[
+        f"k={lo}->{hi} nb={x.shape[0]}"] = (ns, bound_ns)
 
 
 def phase_serve(card: str, dev):

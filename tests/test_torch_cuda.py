@@ -102,6 +102,43 @@ def test_ntt_mxu_kernel_at_n4096(dev, inverse):
     assert torch.equal(got, ntt_mxu.transform_plain(x, (q,), (root,), inverse))
 
 
+def _fold_ends(nb, n, q, seed):
+    """(nb, n) int64: polynomial p all zeros, all q - 1, all 2^63 - 1 or
+    random words below 2^63, by p mod 4 (the ends of the fold's range)."""
+    x = np.random.default_rng(seed).integers(0, (1 << 63) - 1, size=(nb, n), dtype=np.int64)
+    x[0::4], x[1::4], x[2::4] = 0, q - 1, (1 << 63) - 1
+    return x
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_ntt_mxu_shapes_and_fold_ends(dev, n, inverse):
+    """transform and chain (k = 1, 2, 3) at nb = 1, 131, 132, 133 and 264
+    (one CTA, about one wave of 132 SMs, two waves)."""
+    q = CFG.moduli[0]
+    root = pow((CFG.ipsi if inverse else CFG.psi)[0], CFG.n // n, q)
+    for nb in (1, 131, 132, 133, 264):
+        x = torch.from_numpy(_fold_ends(nb, n, q, nb)).to(dev)
+        before = (ntt_mxu.transform.launches, ntt_mxu.chain.launches)
+        got = ntt_mxu.transform(x[None], (q,), (root,), inverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt_mxu.transform_plain(x[None], (q,), (root,), inverse)), nb
+        for k in (1, 2, 3):
+            got = ntt_mxu.chain(x, q, root, k, inverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ntt_mxu.chain_plain(x, q, root, k, inverse)), (nb, k)
+        assert (ntt_mxu.transform.launches, ntt_mxu.chain.launches) == (before[0] + 1,
+                                                                        before[1] + 3)
+
+
+def test_ntt_mxu_compiles_to_integer_warpgroup_products(dev):
+    """The transform's SASS holds IGMMA (wgmma on s8) and no IMMA (mma.sync)."""
+    from aloha_tpu_torch import _build
+
+    sass = _build.sass_counts("ntt_mxu_kernel", ("IGMMA", "IMMA"))
+    assert sass["IGMMA"] and not sass["IMMA"], sass
+
+
 def test_ntt_mxu_rejects_bad_operands(dev):
     q, psi = CFG.moduli[0], CFG.psi[0]
     x = torch.zeros((1, 2, N), dtype=torch.int64, device=dev)

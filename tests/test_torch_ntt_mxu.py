@@ -6,8 +6,14 @@ word-exact (integer arithmetic, tolerance 0):
   `_inv_tables_np` (planes converted back to u64);
 - `transform_plain` and `chain_plain` equal `ntt_np` and the JAX MXU kernel
   run in Pallas interpret mode, as tests/test_ntt_mxu_interpret.py runs it;
-- the fragment order of the kernel's tables is the m16n8k32 s8 register
-  layout of the PTX ISA;
+- the fragment order of the parts probe's tables is the m16n8k32 s8
+  register layout of the PTX ISA;
+- csrc/ntt_mxu.cu's layouts, modelled in NumPy: the table stream read back
+  through the wgmma descriptors' 128-byte swizzle rebuilds the tables, each
+  split writes every digit byte once where the descriptors read it, the
+  accumulator fragments cover each output once, and the whole data flow
+  (splits, stream, descriptor offsets, the digit-at-a-time fold) equals the
+  plain version at n = 4096 and 8192;
 - inputs >= q, bad moduli and bad ring degrees;
 - the bench refuses to run without CUDA, and names no form that is not
   bit-exact.
@@ -203,6 +209,210 @@ def test_fragment_order_is_the_mma_register_layout():
                            False)
     assert np.array_equal(_ptx_a(ntt_mxu.frag_rows(tb.row)), tb.row)
     assert np.array_equal(_ptx_b(ntt_mxu.frag_lanes(tb.lane)), tb.lane)
+
+
+# ------------------------------------------ csrc/ntt_mxu.cu's layouts, modelled
+KBLOCK = 128 * 128  # a 128-row k-block of 128 bytes (the rows product's A)
+MASK59 = np.uint64((1 << 59) - 1)
+
+
+def _ring(n, limb, inverse):
+    """(q, root, Tables) at ring degree n: psi^(8192 / n) of the limb's root."""
+    cfg = DEFAULT_CONFIG
+    q = cfg.moduli[limb]
+    root = pow((cfg.ipsi if inverse else cfg.psi)[limb], cfg.n // n, q)
+    return q, root, ntt_mxu.tables_np(n, q, ntt_mxu._forward_root(q, root, inverse), inverse)
+
+
+def _sw(start, r, kbyte):
+    """The shared-memory byte a wgmma descriptor with the 128-byte swizzle
+    (csrc/wgmma_s8.cuh) reads for row r, byte kbyte of a matrix at `start`
+    (the buffer 1024-aligned, start mod 128 + kbyte < 128): the address
+    start + 1024 (r // 8) + 128 (r mod 8) + kbyte with bits 4-6 XOR bits 7-9."""
+    lin = start + 1024 * (r // 8) + 128 * (r % 8) + kbyte
+    return lin ^ (((lin >> 7) & 7) << 4)
+
+
+def _read(buf, start, rows, width=32):
+    """(rows, width) int64: the K-major matrix the descriptor at `start` reads."""
+    return buf[_sw(start, np.arange(rows)[:, None], np.arange(width)[None, :])].astype(np.int64)
+
+
+def _digits(words):
+    """(R, 128) u64 -> (8, R, 128) int8 biased digits, byte_kk ^ 0x80."""
+    return np.stack([(((words >> np.uint64(8 * kk)) & np.uint64(0xFF)) ^ np.uint64(0x80))
+                     .astype(np.uint8).view(np.int8) for kk in range(8)])
+
+
+def _split_rows(words):
+    """split_rows_sw: thread item (lane l, rows r0 .. r0 + 15) stores the 16
+    digits kk of its rows at k-block (kk R + r0) >> 7, row l, swizzled chunk
+    (((kk R + r0) & 127) >> 4) ^ (l & 7).  Returns (planes, addresses)."""
+    R = words.shape[0]
+    kk, r0, l = np.arange(8)[:, None, None], np.arange(0, R, 16)[None, :, None], np.arange(128)
+    k = kk * R + r0
+    base = (k >> 7) * KBLOCK + l * 128 + ((((k & 127) >> 4) ^ (l & 7)) << 4)
+    addr = base[..., None] + np.arange(16)  # byte i: row r0 + i
+    src = _digits(words).reshape(8, R // 16, 16, 128).transpose(0, 1, 3, 2)
+    planes = np.zeros(8 * R * 128, dtype=np.int8)
+    planes[addr] = src
+    return planes, addr
+
+
+def _split_lanes(words):
+    """split_lanes_sw: thread item (row r, lanes l0 .. l0 + 3) stores one u32
+    per plane kk at k-block kk (R rows of 128 bytes), row r, byte 16 (((l0 >>
+    4) ^ (r & 7))) + (l0 & 15).  Returns (planes, addresses)."""
+    R = words.shape[0]
+    kk, r, l0 = np.arange(8)[:, None, None], np.arange(R)[None, :, None], np.arange(0, 128, 4)
+    base = kk * (R * 128) + r * 128 + (((l0 >> 4) ^ (r & 7)) << 4) + (l0 & 15)
+    addr = base[..., None] + np.arange(4)  # byte i: lane l0 + i
+    planes = np.zeros(8 * R * 128, dtype=np.int8)
+    planes[addr] = _digits(words).reshape(8, R, 32, 4)
+    return planes, addr
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_table_stream_rebuilds_the_tables(n, inverse):
+    """Read back through the descriptors' swizzle at the kernel's offsets,
+    the stream's stages rebuild tables_np(...).row (stage (j, p): the R x
+    128-byte tiles of k-blocks 2p, 2p + 1 of A_j, padded to 16 KiB) and
+    .lane (stage (j, kk): row c of T_j^T, bytes l of k = 128 kk + l), rows
+    first forward and lanes first inverse."""
+    _, _, tb = _ring(n, 2, inverse)
+    R = n // 128
+    stream = ntt_mxu.table_stream(tb, inverse)
+    nrow = 8 * R // 32
+    assert stream.shape == (nrow + 64, ntt_mxu.TILE) and stream.dtype == np.int8
+    rows, lanes = (stream[64:], stream[:64]) if inverse else (stream[:nrow], stream[nrow:])
+    assert not rows[:, 2 * R * 128:].any()
+    row = np.empty_like(tb.row)
+    for s, tile in enumerate(rows):
+        j, p = divmod(s, R // 32)
+        for kb in range(2):
+            row[j, :, 128 * (2 * p + kb):128 * (2 * p + kb + 1)] = _read(tile, kb * R * 128, R, 128)
+    assert np.array_equal(row, tb.row)
+    lane = np.empty_like(tb.lane)
+    for s, tile in enumerate(lanes):
+        j, kk = divmod(s, 8)
+        lane[j, 128 * kk:128 * (kk + 1), :] = _read(tile, 0, 128, 128).T
+    assert np.array_equal(lane, tb.lane)
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_splits_put_every_digit_at_one_swizzled_place(n):
+    """Each split writes every byte of its planes exactly once, and the
+    descriptors read back the operands the products need: the rows' A
+    (lane l, k = kk R + r) by k-block, the lanes' B (row r, k = kk 128 + l)."""
+    R = n // 128
+    words = np.random.default_rng(n).integers(0, 1 << 64, size=(R, 128), dtype=np.uint64)
+    words[0, :3] = (0, (1 << 63) - 1, (1 << 64) - 1)
+    dig = _digits(words)
+    planes, addr = _split_rows(words)
+    assert np.array_equal(np.sort(addr.reshape(-1)), np.arange(planes.size))
+    sT = dig.transpose(2, 0, 1).reshape(128, 8 * R)  # S^T[l, kk R + r]
+    for kb in range(8 * R // 128):
+        assert np.array_equal(_read(planes, kb * KBLOCK, 128, 128), sT[:, 128 * kb:128 * kb + 128])
+    planes, addr = _split_lanes(words)
+    assert np.array_equal(np.sort(addr.reshape(-1)), np.arange(planes.size))
+    for kk in range(8):
+        assert np.array_equal(_read(planes, kk * R * 128, R, 128), dig[kk])
+
+
+def test_accumulator_fragments_cover_each_output_once():
+    """The epilogue's word of d[4 blk + 2h + e] (lane 4 gq + t of warp w in
+    warpgroup wg): lane m = 64 wg + 16 w + gq + 8h, row i = 8 blk + 2t + e;
+    the 256 threads cover the (128 x R) outputs once at R = 32 and 64."""
+    for R in (32, 64):
+        seen = set()
+        for tid in range(256):
+            wg, w, lane = tid // 128, (tid >> 5) & 3, tid & 31
+            for o in range(R // 2):
+                m = 64 * wg + 16 * w + (lane >> 2) + 8 * ((o >> 1) & 1)
+                i = 8 * (o >> 2) + 2 * (lane & 3) + (o & 1)
+                assert (m, i) not in seen
+                seen.add((m, i))
+        assert len(seen) == 128 * R
+
+
+def _kernel_step(words, tb, stream, s, rows, mid, fin, q):
+    """One product step as the kernel runs it: the split, the wgmma k32 steps
+    through the descriptors at the kernel's offsets (rows: A the planes'
+    k-block p KB + kb, B the slot's k-block kb; lanes: A the slot, B the
+    planes' k-block p), fold59 a digit at a time into (lo, hi), its tail,
+    then finish.  Returns (words, next stage)."""
+    R = words.shape[0]
+    parts, kbs = (R // 32, 2) if rows else (8, 1)
+    b = ntt_mxu.bias_bits(8 * R if rows else 1024)
+    planes = (_split_rows if rows else _split_lanes)(words)[0]
+    lo = np.zeros((128, R), dtype=np.uint64)
+    hi = np.zeros((128, R), dtype=np.uint64)
+    for j in range(8):
+        acc = np.zeros((128, R), dtype=np.int64)
+        for p in range(parts):
+            tile = stream[s % len(stream)]  # the stages repeat per transform
+            s += 1
+            for kb in range(kbs):
+                for kc in range(4):
+                    if rows:
+                        a = _read(planes, (p * kbs + kb) * KBLOCK + 32 * kc, 128)
+                        bt = _read(tile, kb * R * 128 + 32 * kc, R)
+                    else:
+                        a = _read(tile, 32 * kc, 128)
+                        bt = _read(planes, p * R * 128 + 32 * kc, R)
+                    acc += a @ bt.T
+        u = (acc + (1 << b)).astype(np.uint64)
+        if j < 5:
+            lo += u << np.uint64(8 * j)
+        else:
+            hi += u << np.uint64(8 * (j - 5))
+    c = (tb.crow[None, :] if rows else tb.ccol[:, None]).astype(np.uint64)
+    qq, delta = np.uint64(q), np.uint64(q - (1 << 59))
+    v1 = lo + (hi << np.uint64(40))
+    v2 = v1 + c
+    vhi = (hi >> np.uint64(24)) + (v1 < lo) + (v2 < v1)
+    w = (v2 & MASK59) + np.uint64(20) * qq - ((vhi << np.uint64(5)) | (v2 >> np.uint64(59))) * delta
+    w = w.T  # word i 128 + m
+    if mid:
+        wo, tw, tws = (a.astype(object) for a in (w, tb.tw, tb.tws))
+        w = ((wo * tw - ((wo * tws) >> 64) * q) % (1 << 64)).astype(np.uint64)
+    elif fin:
+        w = (w & MASK59) + qq - (w >> np.uint64(59)) * delta
+        w = np.where(w >= qq, w - qq, w)
+    return w, s
+
+
+def _kernel_model(words, tb, stream, q, k, inverse):
+    """The kernel's k transforms of one polynomial (R, 128) u64."""
+    s = 0
+    for it in range(k):
+        fin = it == k - 1
+        for rows, mid in (((False, True), (True, False)) if inverse
+                          else ((True, True), (False, False))):
+            words, s = _kernel_step(words, tb, stream, s, rows, mid, fin, q)
+    assert s == k * stream.shape[0]
+    return words
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_kernel_model_equals_plain(n, inverse):
+    """A NumPy model of csrc/ntt_mxu.cu's data flow (splits, table stream,
+    descriptor offsets, the digit-at-a-time fold59, finish) gives the plain
+    version's words for k = 1 and 2, on the fold's range ends (0, q - 1,
+    2^63 - 1, 2^64 - 1) and random words."""
+    q, root, tb = _ring(n, 0, inverse)
+    R = n // 128
+    stream = ntt_mxu.table_stream(tb, inverse)
+    words = np.random.default_rng(n + inverse).integers(0, 1 << 63, size=(R, 128),
+                                                        dtype=np.uint64)
+    words[0, :4] = (0, q - 1, (1 << 63) - 1, (1 << 64) - 1)
+    x = torch.from_numpy(words.reshape(1, n).view(np.int64))
+    for k in (1, 2):
+        got = _kernel_model(words, tb, stream, q, k, inverse).reshape(1, n)
+        want = ntt_mxu.chain_plain(x, q, root, k, inverse)
+        assert np.array_equal(got, cv.to_u64(want)), k
 
 
 def test_bench_without_cuda_exits_nonzero():
