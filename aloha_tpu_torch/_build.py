@@ -16,6 +16,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -87,7 +88,9 @@ def _run_all(cmds) -> list:
 
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the kernels unless a library of the current sources exists:
-    one nvcc per source, all started together, then one link."""
+    one nvcc per source, all started together, then one link.  ptxas'
+    report of every kernel (registers, spills) goes to `log_path()`, and to
+    stderr when `verbose`."""
     out = library_path()
     if out.exists():
         return out
@@ -98,16 +101,38 @@ def build(verbose: bool = False) -> pathlib.Path:
         srcs = sorted(CSRC.glob("*.cu"))
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
         logs = _run_all([
-            [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             *(["-Xptxas", "-v"] if verbose else []), "-c", str(src), "-o", obj]
+            [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             "-c", str(src), "-o", obj]
             for src, obj in zip(srcs, objs)
         ])
         lib_tmp = os.path.join(tmp, out.name)
         logs += _run_all([[nvcc, *arch, "-shared", "-o", lib_tmp, *objs]])
         if verbose:
             print("".join(logs), file=sys.stderr)
+        log_path().write_text("".join(logs))
         os.replace(lib_tmp, out)
     return out
+
+
+def log_path() -> pathlib.Path:
+    """ptxas' report of the build of the current sources."""
+    return library_path().with_suffix(".log")
+
+
+def ptxas_usage(kernel: str) -> dict:
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    the built kernels whose mangled name contains `kernel`, from ptxas'
+    report (`log_path`)."""
+    build()
+    usage, name, spill = {}, None, (0, 0)
+    for line in log_path().read_text().splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name and kernel in name:
+            usage[name] = (int(m.group(1)), *spill)
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

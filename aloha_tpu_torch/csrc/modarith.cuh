@@ -39,6 +39,21 @@ __device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 ws, u64 q) {
   return x * w - t * q;
 }
 
+// Harvey CT butterfly: u, v < 4q -> u' + w v, u' + 2q - w v (both < 4q).
+__device__ __forceinline__ void ct(u64& u, u64& v, u64 w, u64 ws, u64 q, u64 q2) {
+  const u64 x = condsub(u, q2);
+  const u64 y = shoup_mul(v, w, ws, q);
+  u = x + y;
+  v = x + q2 - y;
+}
+
+// GS butterfly with halving: u, v < q -> (u + v)/2, (u - v) w / 2 (both < q).
+__device__ __forceinline__ void gs(u64& u, u64& v, u64 w, u64 ws, u64 q) {
+  const u64 a = u, b = v;
+  u = halfmod(addmod(a, b, q), q);
+  v = halfmod(condsub(shoup_mul(a + q - b, w, ws, q), q), q);
+}
+
 // Low 64 bits of t * (1 + 2^S1 + 2^S2 + 2^S3) as shift-adds: t*q for a sparse
 // modulus with those four set bits (q0 = 2^59 + 2^36 + 2^32 + 1: <32, 36, 59>).
 template <int S1, int S2, int S3>

@@ -46,21 +46,6 @@ namespace {
 // consecutive i hit 16 distinct 8-byte bank pairs.
 __device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 15); }
 
-// Harvey CT butterfly: u, v < 4q -> u' + w v, u' + 2q - w v (both < 4q).
-__device__ __forceinline__ void ct(u64& u, u64& v, u64 w, u64 ws, u64 q, u64 q2) {
-  const u64 x = condsub(u, q2);
-  const u64 y = shoup_mul(v, w, ws, q);
-  u = x + y;
-  v = x + q2 - y;
-}
-
-// GS butterfly with halving: u, v < q -> (u + v)/2, (u - v) w / 2 (both < q).
-__device__ __forceinline__ void gs(u64& u, u64& v, u64 w, u64 ws, u64 q) {
-  const u64 a = u, b = v;
-  u = halfmod(addmod(a, b, q), q);
-  v = halfmod(condsub(shoup_mul(a + q - b, w, ws, q), q), q);
-}
-
 template <int LOGN>
 __global__ void __launch_bounds__((1 << LOGN) / 16)
 ntt_grid_fwd(const u64* __restrict__ x, u64* __restrict__ y, const u64* __restrict__ w,

@@ -9,9 +9,10 @@ Replaces the TPU kernels `ks_kernel._head_body` and `ks_kernel._tail_body`
             (P-1)/2-rounded mod-down with correction NTTs -> x P^-1, plus
             the NTT-domain a-part ("rider") on part 0
 
-with the kernels in `csrc/ks.cu`.  Both are transform kernels, bound like
-`csrc/ntt.cu` by 64-bit integer issue and shared memory; each ciphertext's
-intermediates stay in shared memory.  The head emits canonical words (the
+with the kernels in `csrc/ks.cu`.  Both are transform kernels, bound by
+64-bit integer issue and shared memory (their transforms are
+`csrc/modarith.cuh`'s stage loops `ntt_smem`/`intt_smem`); each
+ciphertext's intermediates stay in shared memory.  The head emits canonical words (the
 TPU's lazy fold59 output belonged to its MXU transform only).
 
 Everything else here is plain PyTorch, as it was XLA around the Pallas

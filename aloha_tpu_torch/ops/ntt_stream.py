@@ -13,9 +13,11 @@ caller's compact tables of a shard's slice of a larger ring
 (`ntt_torch.shard_tables`).  The TPU's per-element (logn, rows, 128) table
 planes are not carried over.
 
-Bound on the H100: integer issue and shared memory (13 stages of 64-bit
-Shoup butterflies on a polynomial held in shared memory), not HBM; one CTA
-per (polynomial, modulus) keeps every stage on chip.
+Bound on the H100: 64-bit integer issue (Shoup butterflies), not HBM; one
+CTA per (polynomial, modulus) keeps every stage on chip.  The kernel runs
+`csrc/ntt_regs.cuh`'s register passes: 16 words a thread, four stages a
+pass, shared memory only between passes (three exchanges at N = 8192).
+Every power-of-two length up to 16384 has its own compiled instance.
 """
 
 from __future__ import annotations

@@ -9,11 +9,15 @@ Phases, each printing its own line; any failure exits nonzero:
   2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
      per source, all at once) into aloha_tpu_torch/_build/; the SASS
      (cuobjdump) of the rate kernel and of the tensor-core transform holds
-     IGMMA and no IMMA;
+     IGMMA and no IMMA; ptxas' registers and spill of each instance of
+     csrc/ntt.cu's register-pass transform;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
-     then ntt_mxu and its chain (k = 1, 2, 3) at N = 4096 and 8192, both
+     then ntt at n = 2, 16, 128, 1024, 2048, 4096, 8192 and 16384, both
+     directions, M = 1 and 3, nb = 1, 131, 132, 133 and 264, on words at
+     the top of its input window (compared); ntt_mxu and its chain (k = 1,
+     2, 3) at N = 4096 and 8192, both
      directions, nb = 1, 131, 132, 133 and 264, on words at the ends of
      the fold's range (0, q - 1, 2^63 - 1) and random ones (compared);
   4. serve: three encrypted matrix-vector requests, each a batch of 16
@@ -25,6 +29,9 @@ Phases, each printing its own line; any failure exits nonzero:
      requests;
   5. bench: ntt, ntt_grid, ntt_mxu and the chain (k=64) at the bench's
      own shapes and inputs against their plain versions (torch.equal); the
+     ntt kernel's marginal ns per polynomial over the batch (nb = 256 ->
+     1024), both directions, beside the bound of one transform, and its
+     ISA shape (M = 1, nb = 1) eager and in a CUDA-graph burst; the
      chain's marginal ns per polynomial per transform at nb = 256 (k = 1
      against k = 9) beside its bound; then aloha_tpu_torch.bench.run at
      N=8192, batch 256, the fused chain cut to k=64: each form's NTT/s,
@@ -155,6 +162,26 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
+    return ntt_registers()
+
+
+def ntt_registers() -> dict:
+    """{"fwd n=2^L" or "inv n=2^L": [registers, spill store bytes, spill
+    load bytes]} of csrc/ntt.cu's register-pass transform, one entry per
+    template instance, from ptxas' report of the build."""
+    import re
+
+    from aloha_tpu_torch import _build
+
+    usage = {}
+    for name, use in _build.ptxas_usage("ntt_regs_kernel").items():
+        logn, inv = re.search(r"ntt_regs_kernelILi(\d+)ELb([01])E", name).groups()
+        usage[f"{'inv' if inv == '1' else 'fwd'} n=2^{logn}"] = list(use)
+    if len(usage) != 30:
+        fail(f"ptxas reported {len(usage)} instances of ntt_regs_kernel, not 30: {usage}")
+    print("build: ntt_regs_kernel registers/spill stores/spill loads: "
+          + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in sorted(usage.items())), flush=True)
+    return usage
 
 
 def time_us(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -394,8 +421,65 @@ def phase_kernels(card: str, dev):
             case("ntt_mxu_chain", label,
                  lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
                  lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv), mxu_work(16, 1, 3))
+    ntt_shapes(dev, results)
     mxu_shapes(dev, results)
     return results
+
+
+#: lengths (those callers use and the template's ends) and batches (one
+#: CTA, about one wave of 132 SMs, two waves) the ntt kernel is held at
+NTT_LENGTHS = (2, 16, 128, 1024, 2048, 4096, 8192, 16384)
+NTT_NBS = (1, 131, 132, 133, 264)
+
+
+def ntt_ring(n: int, M: int, inverse: bool):
+    """M moduli of length-n transforms and their roots: q0, q1, P up to
+    N = 8192, q0, q1, q0 at 16384 (2n does not divide P - 1 there)."""
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+
+    qs = (CFG.moduli if n <= CFG.n else (CFG.moduli[0], CFG.moduli[1], CFG.moduli[0]))[:M]
+    roots = []
+    for m, q in enumerate(qs):
+        if n <= CFG.n:
+            psi = pow(CFG.psi[m], CFG.n // n, q)
+        else:
+            psi = next(r for r in (pow(g, (q - 1) // (2 * n), q) for g in range(2, 100))
+                       if pow(r, n, q) == q - 1)
+        roots.append(pow(psi, -1, q) if inverse else psi)
+    return tuple(qs), tuple(roots)
+
+
+def ntt_shapes(dev, results: dict):
+    """ntt against its plain version at NTT_LENGTHS x NTT_NBS, M = 1 and 3,
+    both directions: words lifted to random points of the input window,
+    every third row all at its top (4q - 1 forward, 2q - 1 inverse)."""
+    import numpy as np
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.ops import ntt_stream
+
+    t0, count = time.perf_counter(), 0
+    for n in NTT_LENGTHS:
+        for inv in (False, True):
+            top = 2 if inv else 4
+            for M in (1, 3):
+                qs, roots = ntt_ring(n, M, inv)
+                for nb in NTT_NBS:
+                    rng = np.random.default_rng(n + M + nb)
+                    a = np.stack([rng.integers(0, q, size=(nb, n), dtype=np.uint64)
+                                  + np.uint64(q) * rng.integers(0, top, size=(nb, n),
+                                                                dtype=np.uint64) for q in qs])
+                    for m, q in enumerate(qs):
+                        a[m, ::3] = top * q - 1
+                    x = cv.from_u64(a, dev)
+                    label = f"{'inv' if inv else 'fwd'} M={M} nb={nb} n={n}"
+                    err = compare("ntt", label,
+                                  lambda: ntt_stream.transform(x, qs, roots, inv),
+                                  lambda: ntt_stream.transform_plain(x, qs, roots, inv))
+                    results.setdefault("ntt", []).append((label, err))
+                    count += 1
+    print(f"kernels: ntt equal at {count} shapes (n, direction, M, nb) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def mxu_shapes(dev, results: dict):
@@ -451,6 +535,7 @@ def phase_bench(card: str, dev, results: dict):
           lambda: ntt_stream.transform(x1, (q,), (psi,), False),
           lambda: ntt_stream.transform_plain(x1, (q,), (psi,), False),
           ntt_work(nb, 1, n, False), 1, 3)
+    ntt_timing(card, dev, results)
     check(results, card, "ntt_grid", f"fwd q0 ({nb}, {n}) bench",
           lambda: ntt_pallas.ntt(x, q, psi), lambda: ntt_pallas.ntt_plain(x, q, psi),
           ntt_work(nb, 1, n, False), 1, 3)
@@ -482,6 +567,55 @@ def phase_bench(card: str, dev, results: dict):
         if count == 0:
             fail(f"kernel {name} was not launched by the bench")
     return launches
+
+
+#: batches the ntt kernel's per-polynomial marginal is taken between
+NTT_MARGINAL_NB = (256, 1024)
+
+
+def ntt_timing(card: str, dev, results: dict):
+    """The ntt kernel under q0 at N = 8192, both directions: its marginal ns
+    per polynomial over the batch (one launch at each of NTT_MARGINAL_NB,
+    probes.common.batch_marginal) beside the bound of one transform (the
+    larger of its bytes over the HBM rate and its INT32 instructions over
+    the issue peak); then the ISA's shape, one polynomial (M = 1, nb = 1),
+    against its plain version, timed eager (as every case) and in a
+    CUDA-graph burst (probes.common.graph_ms): the difference is the host's
+    share of a launch."""
+    import numpy as np
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_stream
+    from aloha_tpu_torch.probes import common
+
+    n, q = CFG.n, CFG.moduli[0]
+    x = cv.from_u64(np.random.default_rng(1).integers(0, q, size=(1, NTT_MARGINAL_NB[1], n),
+                                                      dtype=np.uint64), dev)
+    views = {nb: x[:, :nb] for nb in (1, *NTT_MARGINAL_NB)}
+    lo, hi = NTT_MARGINAL_NB
+    for inv, root in ((False, CFG.psi[0]), (True, CFG.ipsi[0])):
+        name = "inv" if inv else "fwd"
+        ns, t_lo, t_hi, spread = common.batch_marginal(
+            lambda nb: ntt_stream.transform(views[nb], (q,), (root,), inv), NTT_MARGINAL_NB)
+        bound_us, bound_by = bound((16 * n, _transform_ops(n, inv), "int32"))
+        bound_ns = bound_us * 1e3
+        print(f"kernel ntt marginal {name}: {ns:.3f} ns per polynomial bound_ns={bound_ns:.3f} "
+              f"({bound_by}) t(nb={lo})={t_lo:.4f} ms t(nb={hi})={t_hi:.4f} ms "
+              f"spread={spread:.4f} ms on {card}", flush=True)
+        results.setdefault("marginal", {}).setdefault("ntt", {})[
+            f"{name} q0 nb={lo}->{hi}"] = (ns, bound_ns)
+        label = f"{name} q0 (1, 1, {n}) isa"
+        run = lambda: ntt_stream.transform(views[1], (q,), (root,), inv)  # noqa: E731
+        check(results, card, "ntt", label, run,
+              lambda: ntt_stream.transform_plain(views[1], (q,), (root,), inv),
+              ntt_work(1, 1, n, inv))
+        graph_us = common.graph_ms(run) * 1e3
+        eager_us = results["ntt"][-1][2]
+        print(f"kernel ntt {label}: eager_us={eager_us:.2f} graph_us={graph_us:.2f} "
+              f"host share {eager_us - graph_us:.2f} us on {card}", flush=True)
+        results.setdefault("isa_shape", {})[label] = {"ms": eager_us / 1e3,
+                                                      "graph_ms": graph_us / 1e3}
 
 
 #: chain lengths the chain's per-transform marginal is taken between
@@ -1387,7 +1521,7 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        phase_build()
+        registers = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1476,6 +1610,9 @@ def main():
         if name in results.get("marginal", {}):
             entry["marginal_ns"] = {k: v[0] for k, v in results["marginal"][name].items()}
             entry["bound_ns"] = {k: v[1] for k, v in results["marginal"][name].items()}
+        if name == "ntt":
+            entry["isa_shape"] = results["isa_shape"]
+            entry["registers"] = {k: v for k, v in registers.items() if "2^13" in k}
         kernels.append(entry)
     print("step 2 order: " + ", ".join(step2_order(kernels)), flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,59 @@ def test_ntt_kernel_matches_plain(dev, inverse):
     assert torch.equal(got, ntt_stream.transform_plain(x, CFG.moduli, roots, inverse))
 
 
+def _ring(n: int, M: int, inverse: bool):
+    """M moduli of length-n transforms and their roots: q0, q1, P up to N,
+    q0, q1, q0 at 2N (2N does not divide P - 1)."""
+    qs = (CFG.moduli if n <= N else (CFG.moduli[0], CFG.moduli[1], CFG.moduli[0]))[:M]
+    roots = []
+    for m, q in enumerate(qs):
+        if n <= N:
+            psi = pow(CFG.psi[m], N // n, q)
+        else:
+            psi = next(r for r in (pow(g, (q - 1) // (2 * n), q) for g in range(2, 100))
+                       if pow(r, n, q) == q - 1)
+        roots.append(pow(psi, -1, q) if inverse else psi)
+    return tuple(qs), tuple(roots)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [2, 16, 128, 1024, 2048, 4096, 8192, 16384])
+def test_ntt_kernel_at_every_length_batch_and_window_top(dev, n, inverse):
+    """csrc/ntt.cu's register passes (csrc/ntt_regs.cuh) at the lengths
+    callers use and the template's ends, nb = 1 (one CTA: the ISA's shape),
+    131-133 (about one wave of 132 SMs) and 264, M = 1 and 3: words lifted
+    to random points of the input window, every third row all at its top
+    (4q - 1 forward, 2q - 1 inverse)."""
+    top = 2 if inverse else 4
+    for M in (1, 3):
+        qs, roots = _ring(n, M, inverse)
+        for nb in (1, 131, 132, 133, 264):
+            rng = np.random.default_rng(n + M + nb)
+            a = np.stack([rng.integers(0, q, size=(nb, n), dtype=np.uint64)
+                          + np.uint64(q) * rng.integers(0, top, size=(nb, n), dtype=np.uint64)
+                          for q in qs])
+            for m, q in enumerate(qs):
+                a[m, ::3] = top * q - 1
+            x = cv.from_u64(a, dev)
+            before = ntt_stream.transform.launches
+            got = ntt_stream.transform(x, qs, roots, inverse)
+            torch.cuda.synchronize()
+            assert ntt_stream.transform.launches == before + 1
+            assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse)), (M, nb)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_on_a_view_8_bytes_off_16(dev, inverse):
+    """A contiguous input that starts 8 bytes past a 16-byte boundary: the
+    kernel moves each pair of adjacent words as two 8-byte accesses."""
+    qs, roots = _ring(N, 1, inverse)
+    a = np.random.default_rng(7).integers(0, qs[0], size=3 * N + 1, dtype=np.uint64)
+    x = cv.from_u64(a, dev)[1:].view(1, 3, N)
+    assert x.data_ptr() % 16 == 8 and x.is_contiguous()
+    got = ntt_stream.transform(x, qs, roots, inverse)
+    assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse))
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_mxu_kernel_matches_plain(dev, inverse):
     """q0, q1 and P in one launch (M=3) at N=8192; one polynomial of each
