@@ -31,8 +31,8 @@ _U = ctypes.c_uint64
 
 #: C entry points and their argument types: (device, pointers..., ints..., stream).
 SIGNATURES = {
-    "aloha_ntt": [_I] + [_P] * 5 + [_I] * 4 + [_P],
-    "aloha_ntt_grid": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
+    "aloha_ntt": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "aloha_ntt_cluster": [_I] * 5,
     "aloha_ks_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
     "aloha_ntt_mxu": [_I] + [_P] * 8 + [_I] * 5 + [_P],

@@ -9,7 +9,7 @@ bracketed by CUDA events, best of 4 timed runs after a warm-up:
 
   stream     `ops.ntt_stream.transform` (csrc/ntt.cu), batch 1024, 64
              chained launches;
-  grid       `ops.ntt_pallas.ntt` (csrc/ntt_grid.cu), batch 1024, 64
+  grid       `ops.ntt_pallas.ntt` (csrc/ntt.cu at M = 1), batch 1024, 64
              chained launches (the JAX bench's `pallas` form,
              bench.py:274-276);
   mxu        `ops.ntt_mxu.transform` (csrc/ntt_mxu.cu, k = 1), batch 256,

@@ -1,8 +1,8 @@
-// The negacyclic NTT/INTT of one polynomial per CTA as register passes:
-// each thread holds R words and runs several stages on them as one radix-R
-// sub-transform in registers; shared memory only exchanges words between
-// passes.  csrc/ntt.cu launches it; tests/test_torch_ntt_regs.py models
-// the same schedule in NumPy.
+// The negacyclic NTT/INTT of one polynomial per CTA, or per cluster of C
+// CTAs, as register passes: each thread holds R words and runs several
+// stages on them as one radix-R sub-transform in registers; shared memory
+// only exchanges words between passes.  csrc/ntt.cu launches it;
+// tests/test_torch_ntt_regs.py models the same schedule in NumPy.
 //
 // Geometry, for n = 2^LOGN: T = 2^LOGT threads of R = 2^LOGR words, T = n/16
 // (R = 16) from n = 512 up, one full warp (R = n/32) below that, n/2 threads
@@ -12,22 +12,41 @@
 // 4 passes, 3 exchanges, where ntt_smem makes 13 round trips.
 //
 // Owner map of forward pass p: register bit b holds index bit BOT + b for
-// the pass's own bits, then the top index bits LOGN-1, LOGN-2, ... for the
-// rest (a short pass's extras); the thread index's bits fill the remaining
-// index bits in increasing order.  So pass 0 reads i = j + T r (coalesced)
-// and the last forward pass owns adjacent pairs (i, i + 1) whose lanes
-// are adjacent (one 16-byte store a pair, coalesced).  The inverse runs the
-// same passes in reverse order, each pass's stages from its low bit up:
-// pairs in, i = j + T r out.
+// the pass's own bits, then, for a short pass's extras, the top index bits
+// below the cluster rank's (LOGN-1-LOGC, LOGN-2-LOGC, ...); the thread
+// index's bits fill the remaining index bits in increasing order.  So pass
+// 0 reads i = J + T r (coalesced) and the last forward pass owns adjacent
+// pairs (i, i + 1) whose lanes are adjacent (one 16-byte store a pair,
+// coalesced).  The inverse runs the same passes in reverse order, each
+// pass's stages from its low bit up: pairs in, i = J + T r out.
 //
-// Exchanges: after pass k, each thread writes its words to slot swz(i) of
-// one n-word buffer, then one __syncthreads, then pass k+1 reads its words
-// from their slots and, after its stages, writes them back to the same
-// slots.  A thread thus writes exactly the slots it read, so no other
-// thread's read can race the write: one barrier per exchange.  The slot
-// swz(i) = i ^ ((i >> 4) & 15) keeps every warp access of every pass free
-// of bank conflicts from n = 512 up (16 lanes, 16 distinct 8-byte bank
-// pairs; the model checks it).
+// Exchanges: after pass k, each thread writes its words to their slots in
+// shared memory, then one barrier, then pass k+1 reads its words from
+// their slots and, after its stages, writes them back to the same slots.
+// A thread thus writes exactly the slots it read, so no other thread's read
+// can race the write: one barrier per exchange.  The slot swz(i) = i ^ ((i
+// >> 4) & 15) keeps every warp access of every pass free of bank conflicts
+// from n = 512 up (16 lanes, 16 distinct 8-byte bank pairs; the model
+// checks it).
+//
+// Clusters (C = 2 or 4 CTAs per polynomial, launched below one wave, so
+// that a launch of nb polynomials keeps nb C SMs busy): the C CTAs of
+// T/C threads each are one polynomial's threads, J = rank T/C + threadIdx.x,
+// and each holds n/C words of shared memory.  The rank (J's top LOGC bits)
+// sits at index bits LOGT-LOGC and up in pass 0 and at the top LOGC bits
+// in every other pass (hence a short pass's extras below them), so only
+// the exchange between forward passes 0 and 1 moves words between CTAs:
+// each thread writes them straight into the owning CTA's buffer
+// (mapa + st.shared::cluster), and one cluster barrier (release, acquire)
+// replaces __syncthreads.  A word's slot in its CTA is swz of its index
+// with the rank's bits swapped with the top bits, then dropped.  Every
+// CTA arrives (relaxed) at a first cluster barrier when it starts and
+// waits on it just before its first remote store, so no CTA writes into
+// one not yet running.  Forward, that exchange comes first and fills the
+// buffer no CTA has read; inverse, it comes last and fills a second n/C
+// words, since the other CTAs may still be reading the first.  No remote
+// store follows the exchange's barrier, so no CTA exits with writes into
+// it pending.
 //
 // Twiddles: a butterfly on bit b of i takes w[2^(LOGN-1-b) + (i >> (b+1))]
 // forward and w[n/2^(b+1) + (i >> (b+1))] inverse: the compact tables as
@@ -50,21 +69,28 @@ __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 // Shared-memory slot of index i (an XOR-linear map: swz(a ^ b) = swz(a) ^ swz(b)).
 __host__ __device__ constexpr int swz(int i) { return i ^ ((i >> 4) & 15); }
 
-template <int LOGN>
+template <int LOGN, int C = 1>
 struct Geometry {
   static constexpr int LOGT = imax(0, imax(LOGN - 4, imin(5, LOGN - 1)));
   static constexpr int LOGR = LOGN - LOGT;
   static constexpr int T = 1 << LOGT, R = 1 << LOGR;
   static constexpr int PASSES = LOGR ? (LOGN + LOGR - 1) / LOGR : 1;
-  // two 512-thread CTAs an SM: at most 64 registers a thread
-  static constexpr int MIN_BLOCKS = imin(32, imax(1, 1024 / T));
+  static constexpr int LOGC = C == 4 ? 2 : C == 2 ? 1 : 0;
+  static constexpr int THREADS = T / C;          // a CTA's threads
+  static constexpr int WORDS = (1 << LOGN) / C;  // a CTA's words
+  // one CTA a polynomial: two 512-thread CTAs an SM, at most 64 registers
+  // a thread; a cluster (below one wave): 512 threads an SM, at most 128
+  static constexpr int MIN_BLOCKS =
+      C == 1 ? imin(32, imax(1, 1024 / T)) : imin(32, imax(1, 512 / THREADS));
+  static_assert((1 << LOGC) == C && (C == 1 || (THREADS >= 32 && LOGC <= LOGR)),
+                "a cluster of 2 or 4 CTAs of at least a warp each");
 
   // forward pass p's butterfly bits TOP .. BOT
   __host__ __device__ static constexpr int top(int p) { return LOGN - 1 - LOGR * p; }
   __host__ __device__ static constexpr int bot(int p) { return imax(0, top(p) - LOGR + 1); }
   // the index bit of register bit b
   __host__ __device__ static constexpr int regbit(int p, int b) {
-    return b <= top(p) - bot(p) ? bot(p) + b : LOGN - 1 - (b - (top(p) - bot(p) + 1));
+    return b <= top(p) - bot(p) ? bot(p) + b : LOGN - 1 - LOGC - (b - (top(p) - bot(p) + 1));
   }
   // the index bits of register r
   __host__ __device__ static constexpr int off(int p, int r) {
@@ -72,58 +98,117 @@ struct Geometry {
     for (int b = 0; b < LOGR; ++b) o |= ((r >> b) & 1) << regbit(p, b);
     return o;
   }
-  // the index bits thread j owns: its bits below BOT stay, the rest move
-  // above TOP (a short pass's extras are the top bits, above every thread bit)
+  // the index bits thread J owns: its bits below BOT stay, the next ones
+  // go above TOP (below a short pass's extras), the top LOGC (the rank) on top
   __host__ __device__ static constexpr int base(int p, int j) {
-    return (j & ((1 << bot(p)) - 1)) | ((j >> bot(p)) << (top(p) + 1));
+    const int hi = top(p), lo = bot(p);
+    if (LOGC == 0) return (j & ((1 << lo) - 1)) | ((j >> lo) << (hi + 1));
+    const int mid = imax(0, LOGN - LOGC - (LOGR - (hi - lo + 1)) - hi - 1);
+    return (j & ((1 << lo) - 1)) | (((j >> lo) & ((1 << mid) - 1)) << (hi + 1)) |
+           ((j >> (lo + mid)) << (LOGN - LOGC));
   }
-  // every bit that swz(base(p, j)) may hold
-  __host__ __device__ static constexpr int base_slot_bits(int p) {
-    const int bits = base(p, T - 1);
+  // the index bit of the rank's lowest bit in pass p
+  __host__ __device__ static constexpr int rankbit(int p) { return (p == 0 ? LOGT : LOGN) - LOGC; }
+  // i within its CTA's WORDS in pass p: the rank's bits swapped with the top ones, dropped
+  __host__ __device__ static constexpr int local(int p, int i) {
+    if (C == 1) return i;
+    const int m = C - 1, rb = rankbit(p), hi = LOGN - LOGC;
+    const int swapped = (i & ~(m << rb) & ~(m << hi)) | (((i >> rb) & m) << hi) |
+                        (((i >> hi) & m) << rb);
+    return swapped & (WORDS - 1);
+  }
+  // the shared-memory slot of index i in the buffer pass p reads
+  __host__ __device__ static constexpr int slot_of(int p, int i) { return swz(local(p, i)); }
+  // the CTA that owns index i in pass p
+  __host__ __device__ static constexpr int rank_of(int p, int i) {
+    return (i >> rankbit(p)) & (C - 1);
+  }
+  // every bit that slot_of(PS, base(P, J)) may hold
+  __host__ __device__ static constexpr int base_slot_bits(int P, int PS) {
+    const int bits = local(PS, base(P, T - 1));
     return bits | ((bits >> 4) & 15);
   }
 };
 
-// Slot of register r of forward pass P for a thread whose base slot is sb:
-// an add (folded into the access's immediate offset) where the two share
-// no bit, an XOR where they may.
-template <int LOGN, int P, int r>
+// Slot of register r of forward pass P in the buffer pass PS reads, for
+// a thread whose base slot there is sb: an add (folded into the access's
+// immediate offset) where the two share no bit, an XOR where they may.
+template <int LOGN, int C, int P, int PS, int r>
 __device__ __forceinline__ int slot(int sb) {
-  using G = Geometry<LOGN>;
-  constexpr int c = swz(G::off(P, r));
-  if constexpr ((c & G::base_slot_bits(P)) == 0) return sb + c;
+  using G = Geometry<LOGN, C>;
+  constexpr int c = G::slot_of(PS, G::off(P, r));
+  if constexpr ((c & G::base_slot_bits(P, PS)) == 0) return sb + c;
   else return sb ^ c;
 }
 
-template <int LOGN, int P, int r = 0>
-__device__ __forceinline__ void to_shared(u64* sh, int sb, const u64 (&a)[Geometry<LOGN>::R]) {
-  if constexpr (r < Geometry<LOGN>::R) {
-    sh[slot<LOGN, P, r>(sb)] = a[r];
-    to_shared<LOGN, P, r + 1>(sh, sb, a);
+template <int LOGN, int C, int P, int PS, int r = 0>
+__device__ __forceinline__ void to_shared(u64* sh, int sb, const u64 (&a)[Geometry<LOGN, C>::R]) {
+  if constexpr (r < Geometry<LOGN, C>::R) {
+    sh[slot<LOGN, C, P, PS, r>(sb)] = a[r];
+    to_shared<LOGN, C, P, PS, r + 1>(sh, sb, a);
   }
 }
 
-template <int LOGN, int P, int r = 0>
-__device__ __forceinline__ void from_shared(const u64* sh, int sb, u64 (&a)[Geometry<LOGN>::R]) {
-  if constexpr (r < Geometry<LOGN>::R) {
-    a[r] = sh[slot<LOGN, P, r>(sb)];
-    from_shared<LOGN, P, r + 1>(sh, sb, a);
+template <int LOGN, int C, int P, int r = 0>
+__device__ __forceinline__ void from_shared(const u64* sh, int sb,
+                                            u64 (&a)[Geometry<LOGN, C>::R]) {
+  if constexpr (r < Geometry<LOGN, C>::R) {
+    a[r] = sh[slot<LOGN, C, P, P, r>(sb)];
+    from_shared<LOGN, C, P, r + 1>(sh, sb, a);
+  }
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {  // release
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {  // acquire
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The cross exchange: register r of forward pass P into the buffer (at
+// shared address dst in every CTA) of the CTA that owns it in pass PS, at
+// its slot there.  The owner is a constant of r: the rank's bits in pass
+// PS are register bits of pass P.
+template <int LOGN, int C, int P, int PS, int r = 0>
+__device__ __forceinline__ void to_cluster(unsigned dst, int sb,
+                                           const u64 (&a)[Geometry<LOGN, C>::R]) {
+  using G = Geometry<LOGN, C>;
+  if constexpr (r < G::R) {
+    static_assert(G::rank_of(PS, G::base(P, G::T - 1)) == 0, "the owner is a register's");
+    constexpr unsigned rank = G::rank_of(PS, G::off(P, r));
+    const unsigned addr = dst + 8u * (unsigned)slot<LOGN, C, P, PS, r>(sb);
+    asm volatile(
+        "{\n\t.reg .b32 ra;\n\t"
+        "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+        "st.shared::cluster.u64 [ra], %2;\n\t}"
+        ::"r"(addr), "r"(rank), "l"(a[r]) : "memory");
+    to_cluster<LOGN, C, P, PS, r + 1>(dst, sb, a);
   }
 }
 
 // Stage k of forward pass P in the direction's order (forward from the
 // pass's top bit down, inverse from its bottom bit up), then the next.
-// j is the thread index.
-template <int LOGN, bool INV, int P, int k = 0>
-__device__ __forceinline__ void stages(u64 (&a)[Geometry<LOGN>::R], int j, const u64* __restrict__ w,
-                                       const u64* __restrict__ ws, u64 q) {
-  using G = Geometry<LOGN>;
+// j is the thread index, base its index bits (G::base).
+template <int LOGN, int C, bool INV, int P, int k = 0>
+__device__ __forceinline__ void stages(u64 (&a)[Geometry<LOGN, C>::R], int j, int base,
+                                       const u64* __restrict__ w, const u64* __restrict__ ws,
+                                       u64 q) {
+  using G = Geometry<LOGN, C>;
   constexpr int BOT = G::bot(P), TOP = G::top(P), R = G::R;
   if constexpr (k <= TOP - BOT) {
     constexpr int b = INV ? BOT + k : TOP - k;  // the butterfly bit
     constexpr int rb = b - BOT;                 // its register bit
     // i >> (b + 1): the thread's bits above TOP, then the register bits above rb
-    const int t0 = (INV ? (1 << LOGN) >> (b + 1) : 1 << (LOGN - 1 - b)) + ((j >> BOT) << (TOP - b));
+    const int t0 = (INV ? (1 << LOGN) >> (b + 1) : 1 << (LOGN - 1 - b)) +
+                   (C == 1 ? (j >> BOT) << (TOP - b) : base >> (b + 1));
 #pragma unroll
     for (int hi = 0; hi < (R >> (rb + 1)); ++hi) {
       const int t = t0 + (G::off(P, hi << (rb + 1)) >> (b + 1));
@@ -137,20 +222,20 @@ __device__ __forceinline__ void stages(u64 (&a)[Geometry<LOGN>::R], int j, const
           ct(a[r], a[r | (1 << rb)], tw, tws, q, 2 * q);
       }
     }
-    stages<LOGN, INV, P, k + 1>(a, j, w, ws, q);
+    stages<LOGN, C, INV, P, k + 1>(a, j, base, w, ws, q);
   }
 }
 
 // Pass K of the direction's order (forward pass P), then the next pass.
-// The first pass reads x, the last writes y: in forward pass 0, i = j + T r
+// The first pass reads x, the last writes y: in forward pass 0, i = J + T r
 // (a coalesced word a lane), in the last forward pass adjacent pairs (one
 // coalesced 16-byte access a lane when vec).
-template <int LOGN, bool INV, int K>
-__device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN>::R], u64* sh, int j,
+template <int LOGN, int C, bool INV, int K>
+__device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int j,
                                     const u64* __restrict__ x, u64* __restrict__ y,
                                     const u64* __restrict__ w, const u64* __restrict__ ws, u64 q,
                                     bool vec) {
-  using G = Geometry<LOGN>;
+  using G = Geometry<LOGN, C>;
   constexpr int LAST = G::PASSES - 1, P = INV ? LAST - K : K, R = G::R;
   constexpr bool PAIRS = R > 1 && G::regbit(P, 0) == 0;
   const int base = G::base(P, j);
@@ -177,13 +262,24 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN>::R], u64* sh, int j,
       for (int r = 0; r < R; ++r) a[r] = condsub(a[r], q);
     }
   } else {
-    from_shared<LOGN, P>(sh, swz(base), a);
+    // the inverse's last pass reads the cross exchange's own buffer
+    const u64* src = (INV && C > 1 && P == 0) ? sh + G::WORDS : sh;
+    from_shared<LOGN, C, P>(src, G::slot_of(P, base), a);
   }
-  stages<LOGN, INV, P>(a, j, w, ws, q);
+  stages<LOGN, C, INV, P>(a, j, base, w, ws, q);
   if constexpr (K < LAST) {
-    to_shared<LOGN, P>(sh, swz(base), a);
-    __syncthreads();
-    run<LOGN, INV, K + 1>(a, sh, j, x, y, w, ws, q, vec);
+    constexpr int PN = INV ? P - 1 : P + 1;
+    if constexpr (C > 1 && P + PN == 1) {  // the cross exchange
+      u64* dst = INV ? sh + G::WORDS : sh;
+      cluster_wait();  // every CTA of the cluster runs
+      to_cluster<LOGN, C, P, PN>((unsigned)__cvta_generic_to_shared(dst), G::slot_of(PN, base), a);
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      to_shared<LOGN, C, P, PN>(sh, G::slot_of(PN, base), a);
+      __syncthreads();
+    }
+    run<LOGN, C, INV, K + 1>(a, sh, j, x, y, w, ws, q, vec);
   } else {
     if constexpr (!INV) {  // from [0, 4q) to [0, q); the inverse is canonical
 #pragma unroll
@@ -207,19 +303,34 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN>::R], u64* sh, int j,
   }
 }
 
-// One CTA per (polynomial, modulus): grid (nb, M), T threads, n words of
-// dynamic shared memory.  x, y: (M, nb, n); w, ws: (M, n); qs: (M,).  vec:
-// x and y are 16-byte aligned (pairs move as one access).
-template <int LOGN, bool INV>
-__global__ void __launch_bounds__(Geometry<LOGN>::T, Geometry<LOGN>::MIN_BLOCKS)
+// Shared memory of a launch: n words for one CTA a polynomial; n/C a CTA
+// in a cluster, twice that inverse (the cross exchange's own buffer).
+template <int LOGN, int C, bool INV>
+constexpr int smem_bytes() {
+  using G = Geometry<LOGN, C>;
+  return (int)sizeof(u64) * G::WORDS * (C > 1 && INV ? 2 : 1);
+}
+
+// One CTA per (polynomial, modulus), or a cluster of C along x: grid (nb
+// C, M), T/C threads, smem_bytes of dynamic shared memory.  x, y: (M, nb,
+// n); w, ws: (M, n); qs: (M,).  vec: x and y are 16-byte aligned (pairs
+// move as one access).
+template <int LOGN, bool INV, int C>
+__global__ void __launch_bounds__(Geometry<LOGN, C>::THREADS, Geometry<LOGN, C>::MIN_BLOCKS)
 ntt_regs_kernel(const u64* __restrict__ x, u64* __restrict__ y, const u64* __restrict__ w,
                 const u64* __restrict__ ws, const u64* __restrict__ qs, int nb, int vec) {
+  using G = Geometry<LOGN, C>;
   extern __shared__ u64 sh[];
+  int rank = 0;
+  if constexpr (C > 1) {
+    rank = (int)cluster_rank();
+    cluster_arrive_relaxed();  // waited on before the first remote store
+  }
   const int m = blockIdx.y;
-  const size_t off = ((size_t)m * nb + blockIdx.x) << LOGN;
-  u64 a[Geometry<LOGN>::R];
-  run<LOGN, INV, 0>(a, sh, threadIdx.x, x + off, y + off, w + ((size_t)m << LOGN),
-                    ws + ((size_t)m << LOGN), qs[m], vec != 0);
+  const size_t off = ((size_t)m * nb + blockIdx.x / C) << LOGN;
+  u64 a[G::R];
+  run<LOGN, C, INV, 0>(a, sh, rank * G::THREADS + (int)threadIdx.x, x + off, y + off,
+                       w + ((size_t)m << LOGN), ws + ((size_t)m << LOGN), qs[m], vec != 0);
 }
 
 }  // namespace ntt_regs

@@ -1,4 +1,4 @@
-"""Negacyclic NTT/INTT of one modulus over the last axis: the grid kernel and its plain form.
+"""Negacyclic NTT/INTT of one modulus over the last axis: the CUDA kernel and its plain form.
 
 Replaces the TPU grid kernel `ntt_pallas._call` (aloha_tpu/ops/
 ntt_pallas.py:378; bodies `_ntt_kernel_body` :248 and `_intt_kernel_body`
@@ -8,22 +8,20 @@ aloha_tpu/ops/dispatch.py:95-123): under impl `pallas`, and for the one-row
 ring n = 128 that the stream kernel cannot take.  Here `he_torch.encode`
 and `he_torch.rotate_per_transform` call it, one launch per transform.
 
-The kernel, `csrc/ntt_grid.cu`, runs one polynomial per CTA with its 16
-coefficients per thread in registers, pairs partners in other threads of
-the warp by shuffles and takes one shared-memory transpose (the mapping is
-stated at the top of the source).  It reads the compact tables of
+The kernel is `csrc/ntt.cu` at one modulus (M = 1), launched through
+`ntt_stream._launch`: the register passes of `csrc/ntt_regs.cuh`, which
+compute the same function (natural order in, bit-reversed out, and back)
+at every length this wrapper takes.  It reads the compact tables of
 `ntt_torch.tables`; the TPU's per-element (logn, rows, 128) table planes
 existed for its tile layout and are not carried over.
 
-Bound on the H100: 64-bit integer issue, like `csrc/ntt.cu`, not HBM.
+Bound on the H100: 64-bit integer issue, not HBM.
 """
 
 from __future__ import annotations
 
-import torch
-
-from aloha_tpu_torch import _build, ntt_torch
-from aloha_tpu_torch.ops import dispatch
+from aloha_tpu_torch import ntt_torch
+from aloha_tpu_torch.ops import dispatch, ntt_stream
 
 MIN_N, MAX_N = 128, 8192
 
@@ -56,20 +54,11 @@ def transform(a, q: int, root: int, inverse: bool):
     _check(n, q)
     if not dispatch.use_kernel(a):
         return (intt_plain if inverse else ntt_plain)(a, q, root)
-    x = a.reshape(-1, n).contiguous()
-    if x.data_ptr() % 16:  # the kernel moves 16-byte pairs
-        x = x.clone()
-    nb = x.shape[0]
-    dispatch.check(x, (nb, n), "a")
-    y = torch.empty_like(x)
-    if nb:
-        w, ws, _ = ntt_torch.tables(n, (q,), (root,), x.device)
-        err = _build.lib().aloha_ntt_grid(
-            x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(),
-            q, nb, n.bit_length() - 1, int(inverse), dispatch.stream_of(x),
-        )
-        _build.check(err, "ntt_grid")
-        transform.launches += 1
+    x = a.reshape(1, -1, n).contiguous()
+    dispatch.check(x, x.shape, "a")
+    w, ws, qs = ntt_torch.tables(n, (q,), (root,), x.device)
+    y, launched = ntt_stream._launch(x, w, ws, qs, inverse, "ntt_grid")
+    transform.launches += launched
     return y.reshape(a.shape)
 
 

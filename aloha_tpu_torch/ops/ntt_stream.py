@@ -18,6 +18,10 @@ CTA per (polynomial, modulus) keeps every stage on chip.  The kernel runs
 `csrc/ntt_regs.cuh`'s register passes: 16 words a thread, four stages a
 pass, shared memory only between passes (three exchanges at N = 8192).
 Every power-of-two length up to 16384 has its own compiled instance.
+Below one wave (nb M CTAs fewer than the card's SMs) the kernel splits each
+polynomial over a cluster of 2 or 4 CTAs, from n = 1024 up forward and n =
+4096 up inverse, one exchange through distributed shared memory per
+transform (`cluster_size`).
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ from aloha_tpu_torch import _build, ntt_torch
 from aloha_tpu_torch.ops import dispatch
 
 
-def _launch(x, w, ws, q, inverse: bool, name: str):
+def _launch(x, w, ws, q, inverse: bool, name: str, cluster: int = 0):
     """One launch of csrc/ntt.cu on x (M, nb, n), group m with tables
-    w[m], ws[m] (n,) under modulus q[m]: (output, whether it launched)."""
+    w[m], ws[m] (n,) under modulus q[m]: (output, whether it launched).
+    cluster 0 lets the kernel choose how many CTAs share a polynomial
+    (`cluster_size`); 1, 2 or 4 forces it (the card tests and
+    chip_smoke.py's timing; no caller on the main path)."""
     M, nb, n = x.shape
     if n & (n - 1) or n > 16384:
         raise ValueError(f"length {n}: a power of two up to 16384 required")
@@ -41,10 +48,30 @@ def _launch(x, w, ws, q, inverse: bool, name: str):
         err = _build.lib().aloha_ntt(
             x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(),
             ws.data_ptr(), q.data_ptr(), M, nb, n.bit_length() - 1,
-            int(inverse), dispatch.stream_of(x),
+            int(inverse), cluster, dispatch.stream_of(x),
         )
         _build.check(err, name)
     return y, bool(nb)
+
+
+def max_cluster(n: int, inverse: bool) -> int:
+    """The largest cluster csrc/ntt.cu has an instance for at length n
+    (its max_cluster): 2 or 4 CTAs of at least a warp each, forward from n
+    = 1024 and inverse from n = 4096; 1 elsewhere."""
+    if n < (4096 if inverse else 1024):
+        return 1
+    return min(4, n // 16 // 32)
+
+
+def cluster_size(device: torch.device, M: int, nb: int, n: int, inverse: bool) -> int:
+    """CTAs per polynomial of a csrc/ntt.cu launch of M x nb length-n
+    transforms on a CUDA device: 1 when the nb M CTAs fill the SMs or the
+    length has no cluster (`max_cluster`); otherwise 2, or 4 while 2 a
+    polynomial would fill less than three quarters of the SMs."""
+    c = _build.lib().aloha_ntt_cluster(device.index, M, nb, n.bit_length() - 1, int(inverse))
+    if not c:
+        raise RuntimeError(f"no cluster size for device {device}")
+    return c
 
 
 def transform_plain(x, qs, roots, inverse: bool):

@@ -10,7 +10,8 @@ Phases, each printing its own line; any failure exits nonzero:
      per source, all at once) into aloha_tpu_torch/_build/; the SASS
      (cuobjdump) of the rate kernel and of the tensor-core transform holds
      IGMMA and no IMMA; ptxas' registers and spill of each instance of
-     csrc/ntt.cu's register-pass transform;
+     csrc/ntt.cu's register-pass transform (45: one CTA a polynomial, and
+     clusters of 2 and 4 CTAs);
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -31,7 +32,8 @@ Phases, each printing its own line; any failure exits nonzero:
      own shapes and inputs against their plain versions (torch.equal); the
      ntt kernel's marginal ns per polynomial over the batch (nb = 256 ->
      1024), both directions, beside the bound of one transform, and its
-     ISA shape (M = 1, nb = 1) eager and in a CUDA-graph burst; the
+     ISA shape (M = 1, nb = 1) eager and in a CUDA-graph burst, also at
+     one CTA a polynomial (C = 1 forced); the
      chain's marginal ns per polynomial per transform at nb = 256 (k = 1
      against k = 9) beside its bound; then aloha_tpu_torch.bench.run at
      N=8192, batch 256, the fused chain cut to k=64: each form's NTT/s,
@@ -44,12 +46,15 @@ Phases, each printing its own line; any failure exits nonzero:
      process group of D ranks, D the largest power of two <= the visible
      GPUs (one card: D=1, a world of one): forward equal to ntt_np.ntt on
      the first two polynomials, round trip exact, the kernel launched;
-  7. multiply: ntt_grid (the grid NTT, csrc/ntt_grid.cu) forward and
-     inverse under q0, q1 and P at N=8192, nb=64 (one row at the top of
-     the input window), at nb=16 (the encode shape) and at n=128 and 1024,
-     each against its plain version and beside csrc/ntt.cu at the same
-     shapes; then 3 batches of B=16 cleartext pairs: he_torch.encode on
-     the card (the fixed-point encoder, one ntt_grid launch per limb),
+  7. multiply: ntt_grid (the grid NTT's wrapper, ops/ntt_pallas, on
+     csrc/ntt.cu at one modulus) forward and inverse under q0, q1 and P at
+     N=8192, nb=64 (one row at the top of the input window), at nb=16 (the
+     encode shape) and at n=128 and 1024, each against its plain version
+     and beside ntt_stream at the same shapes; the wrapper's time under q0
+     at N=8192, nb = 1, 16, 32, 48, 64, 256 and 264, both directions, eager
+     and in a CUDA-graph burst, beside the same launch forced to C = 1
+     (equal words); then 3 batches of B=16 cleartext pairs: he_torch.encode
+     on the card (the fixed-point encoder, one ntt_grid launch per limb),
      encryption with the port's keys, ct_mul -> relinearize -> rescale,
      and a rotation by one step both per transform (8 ntt_grid launches)
      and fused (ks_head/ks_tail).  Encodings word-exact against the NumPy
@@ -165,20 +170,28 @@ def phase_build():
     return ntt_registers()
 
 
+#: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
+#: directions of n = 2^0..2^14 at C = 1, and the clusters C = 2, 4 with
+#: n/16/C >= 32 threads a CTA, forward from n = 1024 (1024: C = 2;
+#: 2048-16384: 2, 4) and inverse from n = 4096 (2, 4)
+NTT_INSTANCES = 2 * 15 + (1 + 4 * 2) + 3 * 2
+
+
 def ntt_registers() -> dict:
-    """{"fwd n=2^L" or "inv n=2^L": [registers, spill store bytes, spill
-    load bytes]} of csrc/ntt.cu's register-pass transform, one entry per
-    template instance, from ptxas' report of the build."""
+    """{"fwd n=2^L C=c" or "inv n=2^L C=c": [registers, spill store bytes,
+    spill load bytes]} of csrc/ntt.cu's register-pass transform, one entry
+    per template instance, from ptxas' report of the build."""
     import re
 
     from aloha_tpu_torch import _build
 
     usage = {}
     for name, use in _build.ptxas_usage("ntt_regs_kernel").items():
-        logn, inv = re.search(r"ntt_regs_kernelILi(\d+)ELb([01])E", name).groups()
-        usage[f"{'inv' if inv == '1' else 'fwd'} n=2^{logn}"] = list(use)
-    if len(usage) != 30:
-        fail(f"ptxas reported {len(usage)} instances of ntt_regs_kernel, not 30: {usage}")
+        logn, inv, c = re.search(r"ntt_regs_kernelILi(\d+)ELb([01])ELi(\d+)E", name).groups()
+        usage[f"{'inv' if inv == '1' else 'fwd'} n=2^{logn} C={c}"] = list(use)
+    if len(usage) != NTT_INSTANCES:
+        fail(f"ptxas reported {len(usage)} instances of ntt_regs_kernel, not {NTT_INSTANCES}: "
+             f"{usage}")
     print("build: ntt_regs_kernel registers/spill stores/spill loads: "
           + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in sorted(usage.items())), flush=True)
     return usage
@@ -581,10 +594,12 @@ def ntt_timing(card: str, dev, results: dict):
     the issue peak); then the ISA's shape, one polynomial (M = 1, nb = 1),
     against its plain version, timed eager (as every case) and in a
     CUDA-graph burst (probes.common.graph_ms): the difference is the host's
-    share of a launch."""
+    share of a launch; and that launch at C = 1 (one CTA a polynomial, not
+    the cluster the kernel chooses) in a graph."""
     import numpy as np
 
     from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import ntt_torch
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ntt_stream
     from aloha_tpu_torch.probes import common
@@ -612,10 +627,16 @@ def ntt_timing(card: str, dev, results: dict):
               ntt_work(1, 1, n, inv))
         graph_us = common.graph_ms(run) * 1e3
         eager_us = results["ntt"][-1][2]
+        w, ws, qs = ntt_torch.tables(n, (q,), (root,), dev)
+        c1_us = common.graph_ms(
+            lambda: ntt_stream._launch(views[1], w, ws, qs, inv, "ntt", cluster=1)) * 1e3
+        chosen = ntt_stream.cluster_size(dev, 1, 1, n, inv)
         print(f"kernel ntt {label}: eager_us={eager_us:.2f} graph_us={graph_us:.2f} "
-              f"host share {eager_us - graph_us:.2f} us on {card}", flush=True)
-        results.setdefault("isa_shape", {})[label] = {"ms": eager_us / 1e3,
-                                                      "graph_ms": graph_us / 1e3}
+              f"host share {eager_us - graph_us:.2f} us; C={chosen}, at C=1 "
+              f"graph_us={c1_us:.2f} on {card}", flush=True)
+        results.setdefault("isa_shape", {})[label] = {
+            "ms": eager_us / 1e3, "graph_ms": graph_us / 1e3, "C": chosen,
+            "c1_graph_ms": c1_us / 1e3}
 
 
 #: chain lengths the chain's per-transform marginal is taken between
@@ -844,6 +865,50 @@ def _grid_cases(card: str, dev, results: dict):
                   lambda: ntt_stream.transform_plain(x[None], (q,), (root,), inv), work)
 
 
+#: batches of the grid wrapper's timing at N = 8192: one polynomial, the
+#: encode and rotation shapes (16-48), GRID_NB, the bench's and two waves
+GRID_TIMING_NB = (1, 16, 32, 48, 64, 256, 264)
+
+
+def grid_timing(card: str, dev, results: dict):
+    """ntt_pallas.transform under q0 at N = 8192, both directions, at
+    GRID_TIMING_NB: eager (time_us: calls enqueued back to back) and in a
+    CUDA-graph burst (probes.common.graph_ms: no host between the calls),
+    with the cluster the kernel chooses; beside it the same launch forced
+    to C = 1 (one CTA a polynomial, ntt_stream._launch's internal
+    argument) in a graph burst, whose words it compares.  Into
+    results["grid_timing"][label]."""
+    import numpy as np
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import ntt_torch
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ntt_pallas, ntt_stream
+    from aloha_tpu_torch.probes import common
+
+    n, q = CFG.n, CFG.moduli[0]
+    x = cv.from_u64(np.random.default_rng(SEED + 7).integers(
+        0, q, size=(max(GRID_TIMING_NB), n), dtype=np.uint64), dev)
+    for inv, root in ((False, CFG.psi[0]), (True, CFG.ipsi[0])):
+        w, ws, qs = ntt_torch.tables(n, (q,), (root,), dev)
+        for nb in GRID_TIMING_NB:
+            xb = x[:nb]
+            run = lambda: ntt_pallas.transform(xb, q, root, inv)  # noqa: E731
+            rec = {"ms": time_us(run) / 1e3, "graph_ms": common.graph_ms(run)}
+            label = f"{'inv' if inv else 'fwd'} q0 nb={nb} n={n}"
+            rec["C"] = ntt_stream.cluster_size(dev, 1, nb, n, inv)
+            launch = lambda c: ntt_stream._launch(xb[None], w, ws, qs, inv, "ntt",  # noqa: E731
+                                                  cluster=c)
+            compare("ntt_grid", f"{label} C=1 against C={rec['C']}", lambda: launch(1)[0][0], run)
+            rec["c1_graph_ms"] = common.graph_ms(lambda: launch(1))
+            bound_us, _ = bound(ntt_work(nb, 1, n, inv))
+            print(f"kernel ntt_grid timing {label}: eager_us={rec['ms'] * 1e3:.2f} "
+                  f"graph_us={rec['graph_ms'] * 1e3:.2f} C={rec['C']}; at C=1 "
+                  f"graph_us={rec['c1_graph_ms'] * 1e3:.2f} bound_us={bound_us:.2f} on {card}",
+                  flush=True)
+            results.setdefault("grid_timing", {})[label] = rec
+
+
 def _crt_slots(ct, sk, CFG):
     """Slots of a ciphertext whose message exceeds one limb (a product at
     Delta^2): decrypt under both limbs, recombine by CRT, centre mod q0 q1."""
@@ -871,6 +936,7 @@ def phase_multiply(card: str, dev, results: dict):
     from aloha_tpu_torch.ops import aut, ntt_pallas, ntt_stream
 
     _grid_cases(card, dev, results)
+    grid_timing(card, dev, results)
     n, S, L = CFG.n, CFG.n // 2, CFG.n_limbs
     q0, q1 = CFG.moduli[0], CFG.moduli[1]
     cpu = torch.device("cpu")
@@ -1560,7 +1626,7 @@ def main():
                           "aloha_tpu/ops/ntt_mxu.py:742", f"fwd q0 k={k} nb={nb} bench"),
         "ntt_with_tables": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:775",
                             None, f"fwd D=1 d=0 nb={SHARD_NB}"),
-        "ntt_grid": ("aloha_tpu_torch/csrc/ntt_grid.cu", "aloha_tpu/ops/ntt_pallas.py:378",
+        "ntt_grid": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_pallas.py:378",
                      None, f"fwd q0 nb={GRID_NB} n={n}"),
         "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102",
                 None, f"q0 nb=1 e={pow(3, 2, 2 * n)}"),
@@ -1610,9 +1676,11 @@ def main():
         if name in results.get("marginal", {}):
             entry["marginal_ns"] = {k: v[0] for k, v in results["marginal"][name].items()}
             entry["bound_ns"] = {k: v[1] for k, v in results["marginal"][name].items()}
+        if name == "ntt_grid":
+            entry["timing"] = results["grid_timing"]
         if name == "ntt":
             entry["isa_shape"] = results["isa_shape"]
-            entry["registers"] = {k: v for k, v in registers.items() if "2^13" in k}
+            entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}
         kernels.append(entry)
     print("step 2 order: " + ", ".join(step2_order(kernels)), flush=True)
     print(json.dumps({"kernels": kernels}))

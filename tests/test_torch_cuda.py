@@ -117,6 +117,105 @@ def test_ntt_kernel_on_a_view_8_bytes_off_16(dev, inverse):
     assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse))
 
 
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_ntt_kernel_on_each_cluster_size(dev, n, inverse, C):
+    """csrc/ntt.cu with each polynomial forced onto a cluster of C CTAs
+    (ntt_stream._launch's internal argument) at nb = 1 to 264, M = 1 and
+    3, inputs at the top of the window: the plain version's words.  An
+    inverse below n = 4096 has no cluster instance: C > 1 raises there."""
+    top = 2 if inverse else 4
+    for M in (1, 3):
+        qs, roots = _ring(n, M, inverse)
+        w, ws, q = ntt_torch.tables(n, qs, roots, dev)
+        for nb in (1, 2, 16, 33, 64, 131, 132, 264):
+            rng = np.random.default_rng(n + M + nb + C)
+            a = np.stack([rng.integers(0, qq, size=(nb, n), dtype=np.uint64)
+                          + np.uint64(qq) * rng.integers(0, top, size=(nb, n), dtype=np.uint64)
+                          for qq in qs])
+            for m, qq in enumerate(qs):
+                a[m, ::3] = top * qq - 1
+            x = cv.from_u64(a, dev)
+            if C > ntt_stream.max_cluster(n, inverse):
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    ntt_stream._launch(x, w, ws, q, inverse, "ntt", cluster=C)
+                continue
+            got, launched = ntt_stream._launch(x, w, ws, q, inverse, "ntt", cluster=C)
+            torch.cuda.synchronize()
+            assert launched
+            assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse)), (M, nb)
+
+
+def test_ntt_kernel_splits_small_launches_over_clusters(dev):
+    """The kernel's own choice: a cluster (C > 1) at the encode shape nb =
+    16 and at the ISA's nb = 1, 2 CTAs a polynomial where they fill three
+    quarters of the SMs, one CTA a polynomial from one wave up, below n =
+    1024 and for an inverse below n = 4096; the grid wrapper at nb = 16
+    gives the plain version's words."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for inverse in (False, True):
+        assert ntt_stream.cluster_size(dev, 1, 16, N, inverse) > 1
+        assert ntt_stream.cluster_size(dev, 1, 1, N, inverse) == 4
+        assert ntt_stream.cluster_size(dev, 1, sms // 2, N, inverse) == 2
+        assert ntt_stream.cluster_size(dev, 1, sms - 1, N, inverse) == 2
+        assert ntt_stream.cluster_size(dev, 1, sms, N, inverse) == 1
+        assert ntt_stream.cluster_size(dev, 3, 64, N, inverse) == 1
+        assert ntt_stream.cluster_size(dev, 1, 16, 512, inverse) == 1
+        assert ntt_stream.cluster_size(dev, 1, 64, 4096, inverse) == 2
+    assert ntt_stream.cluster_size(dev, 1, 1, 1024, False) == 2
+    assert ntt_stream.cluster_size(dev, 1, 64, 2048, False) == 2
+    assert ntt_stream.cluster_size(dev, 1, 1, 1024, True) == 1
+    assert ntt_stream.cluster_size(dev, 1, 64, 2048, True) == 1
+    q, psi = CFG.moduli[0], CFG.psi[0]
+    x = _residues(np.random.default_rng(8), (16,), (q,), dev)[0]
+    assert torch.equal(ntt_pallas.ntt(x, q, psi), ntt_pallas.ntt_plain(x, q, psi))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096, 16384])
+def test_ntt_kernel_has_the_cluster_instances_max_cluster_names(dev, n, inverse):
+    """`ntt_stream.max_cluster` mirrors the kernel's instances (C <= 4,
+    n/16/C >= 32 threads a CTA, an inverse from n = 4096): forced onto it
+    the kernel gives the plain version's words; a cluster twice as wide is
+    an error, not a launch at another size."""
+    qs, roots = _ring(n, 1, inverse)
+    w, ws, q = ntt_torch.tables(n, qs, roots, dev)
+    rng = np.random.default_rng(n)
+    x = cv.from_u64(np.stack([rng.integers(0, qq, size=(2, n), dtype=np.uint64) for qq in qs]),
+                    dev)
+    most = ntt_stream.max_cluster(n, inverse)
+    got, _ = ntt_stream._launch(x, w, ws, q, inverse, "ntt", cluster=most)
+    assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ntt_stream._launch(x, w, ws, q, inverse, "ntt", cluster=2 * most)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [128, 1024, 8192])
+def test_grid_wrapper_equals_the_stream_wrapper_on_the_card(dev, n, inverse):
+    """`ntt_pallas.transform` and `ntt_stream.transform` at M = 1 both
+    launch csrc/ntt.cu, each with its own shapes and tables: the same
+    words, and the plain version's, under P at nb = 3, 16 and 64 (a
+    cluster below one wave from n = 1024), on an (nb, n) view 8 bytes off
+    16, the last row at the top of the window."""
+    q = CFG.moduli[2]
+    root = pow((CFG.ipsi if inverse else CFG.psi)[2], N // n, q)
+    top = 2 if inverse else 4
+    for nb in (3, 16, 64):
+        rng = np.random.default_rng(60 + n + nb)
+        a = rng.integers(0, q, size=(nb * n + 1,), dtype=np.uint64)
+        a[-n:] = top * q - 1
+        x = cv.from_u64(a, dev)[1:].view(nb, n)
+        before = ntt_pallas.transform.launches
+        got = ntt_pallas.transform(x, q, root, inverse)
+        torch.cuda.synchronize()
+        assert ntt_pallas.transform.launches == before + 1
+        assert torch.equal(got, ntt_stream.transform(x[None], (q,), (root,), inverse)[0]), nb
+        plain = ntt_pallas.intt_plain if inverse else ntt_pallas.ntt_plain
+        assert torch.equal(got, plain(x, q, root)), nb
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_mxu_kernel_matches_plain(dev, inverse):
     """q0, q1 and P in one launch (M=3) at N=8192; one polynomial of each

@@ -1,16 +1,16 @@
-"""ops.ntt_pallas (the grid NTT) against the JAX package, and a model of its CUDA schedule.
+"""ops.ntt_pallas (the grid NTT) against the JAX package and the stream wrapper.
 
 - `ntt`/`intt` on CPU tensors (the plain version) equal
   `aloha_tpu.ops.ntt_pallas.ntt/intt(..., interpret=True)`, as
   tests/test_ntt_pallas.py runs the TPU kernel on the CPU, at N = 8192
   under q0 and P; a (2, 3, N) batch and the rings n = 128 and 1024 equal
   `ntt_np`, with inputs at the top of the kernel's windows;
-- `schedule_model` runs csrc/ntt_grid.cu's schedule on Python ints: the
-  same owner maps (layout A: thread j owns j + T k; layout B: 16 j + r),
-  the same partner rules (registers, then warp shuffles, then registers),
-  the same swizzled shared-memory transpose, the same Harvey/Shoup and
-  halving butterflies with 64-bit wrap-around.  It is the only CPU check of
-  the kernel's index logic; it must equal `ntt_np` at n = 128, 1024, 8192.
+- `transform`'s kernel path, its launch replaced by a stand-in that
+  evaluates the tables it is handed, makes one launch of the shapes,
+  tables and name csrc/ntt.cu takes and equals `ntt_stream.transform` at
+  one modulus; the kernel's index logic is modelled in
+  tests/test_torch_ntt_regs.py, and both wrappers are held against each
+  other on the card in tests/test_torch_cuda.py.
 
 Every comparison is word-exact.
 """
@@ -24,13 +24,12 @@ from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu.ops import ntt_pallas as jax_ntt_pallas
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import ntt_torch
-from aloha_tpu_torch.ops import ntt_pallas
+from aloha_tpu_torch.ops import dispatch, ntt_pallas, ntt_stream
 
 torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
 N = CFG.n
-M64 = (1 << 64) - 1
 
 
 def _roots(n: int, m: int):
@@ -103,132 +102,46 @@ def test_cpu_path_launches_nothing_and_keeps_empty_batches():
     assert ntt_pallas.ntt_plain is not ntt_pallas.ntt
 
 
-# ------------------------------------------------------ the kernel's schedule
-def _condsub(x, q):
-    return np.where(x >= q, x - q, x)
-
-
-def _shoup(x, w, ws, q):
-    """x w mod q in [0, 2q): x w - floor(x ws / 2^64) q, modulo 2^64."""
-    return (x * w - ((x * ws) >> 64) * q) & M64
-
-
-def _halfmod(a, q):
-    return (a >> 1) + np.where(a & 1, (q + 1) >> 1, 0)
-
-
-def _swz(i):
-    return i ^ ((i >> 4) & 15)
-
-
-def _ct(u, v, w, ws, q):
-    x = _condsub(u, 2 * q)
-    y = _shoup(v, w, ws, q)
-    return x + y, x + 2 * q - y
-
-
-def _gs(u, v, w, ws, q):
-    return (_halfmod(_condsub(u + v, q), q),
-            _halfmod(_condsub(_shoup(u + q - v, w, ws, q), q), q))
-
-
-def _transpose(a, n, T, to_b: bool):
-    """The shared-memory exchange: write by one owner map, read by the
-    other, through the swizzled slots (which must form a permutation)."""
-    j = np.arange(T)[:, None]
-    col = np.arange(16)[None, :]
-    idx_a, idx_b = j + T * col, 16 * j + col
-    src, dst = (idx_a, idx_b) if to_b else (idx_b, idx_a)
-    sh = np.empty(n, dtype=object)
-    slots = _swz(src)
-    assert len(set(slots.ravel().tolist())) == n
-    sh[slots] = a
-    return sh[_swz(dst)]
-
-
-def schedule_model(x, q: int, root: int, inverse: bool):
-    """csrc/ntt_grid.cu on one polynomial x (n,) of Python ints: regs[j, k]
-    is register k of thread j."""
-    n = len(x)
-    logn = n.bit_length() - 1
-    logt = logn - 4
-    T = 1 << logt
-    w64, ws64 = ntt_torch.twiddles_np(n, root, q)
-    w = np.array([int(v) for v in w64], dtype=object)
-    ws = np.array([int(v) for v in ws64], dtype=object)
-    j = np.arange(T)
-    x = np.array([int(v) for v in x], dtype=object)
-    if not inverse:
-        a = x[j[:, None] + T * np.arange(16)[None, :]]  # layout A
-        for s in range(4):  # t = T 2^(3-s): registers k, k + (8 >> s)
-            d = 8 >> s
-            for k in range(16):
-                if k & d:
-                    continue
-                ti = (1 << s) + (k >> (4 - s))
-                a[:, k], a[:, k + d] = _ct(a[:, k], a[:, k + d], w[ti], ws[ti], q)
-        a = _transpose(a, n, T, to_b=True)
-        for s in range(4, logt):  # 16 <= t < T: lanes j, j ^ (t/16)
-            m = 1 << (logn - 5 - s)
-            assert m < 32  # the partner is inside the warp
-            top = (j & m) == 0
-            ti = (1 << s) + (j >> (logn - 4 - s))
-            tw, tws = w[ti][:, None], ws[ti][:, None]
-            send = np.where(top[:, None], _condsub(a, 2 * q), _shoup(a, tw, tws, q))
-            got = send[j ^ m]
-            a = np.where(top[:, None], send + got, got + 2 * q - send)
-        for s in range(max(logt, 4), logn):  # t < 16: registers r, r + t
-            d = 1 << (logn - 1 - s)
-            for r in range(16):
-                if r & d:
-                    continue
-                ti = (1 << s) + ((16 * j + r) >> (logn - s))
-                a[:, r], a[:, r + d] = _ct(a[:, r], a[:, r + d], w[ti], ws[ti], q)
-        out = np.empty(n, dtype=object)
-        out[(16 * j[:, None] + np.arange(16)[None, :]).ravel()] = \
-            _condsub(_condsub(a, 2 * q), q).ravel()
-        return out
-    a = _condsub(x[16 * j[:, None] + np.arange(16)[None, :]], q)  # layout B
-    for s in range(min(logt, 4)):  # t = 2^s < 16: registers
-        d = 1 << s
-        for r in range(16):
-            if r & d:
-                continue
-            ti = (n >> (s + 1)) + ((16 * j + r) >> (s + 1))
-            a[:, r], a[:, r + d] = _gs(a[:, r], a[:, r + d], w[ti], ws[ti], q)
-    for s in range(4, logt):  # 16 <= t < T: lanes j, j ^ (t/16)
-        m = 1 << (s - 4)
-        assert m < 32
-        top = (j & m) == 0
-        ti = (n >> (s + 1)) + (j >> (s - 3))
-        tw, tws = w[ti][:, None], ws[ti][:, None]
-        got = a[j ^ m]
-        a = np.where(top[:, None], _halfmod(_condsub(a + got, q), q),
-                     _halfmod(_condsub(_shoup(got + q - a, tw, tws, q), q), q))
-    a = _transpose(a, n, T, to_b=False)
-    for s in range(logt, logn):  # t = 2^s >= T: registers k, k + t/T
-        d = 1 << (s - logt)
-        for k in range(16):
-            if k & d:
-                continue
-            ti = (n >> (s + 1)) + (k >> (s + 1 - logt))
-            a[:, k], a[:, k + d] = _gs(a[:, k], a[:, k + d], w[ti], ws[ti], q)
-    out = np.empty(n, dtype=object)
-    out[(j[:, None] + T * np.arange(16)[None, :]).ravel()] = _condsub(a, q).ravel()
-    return out
+def _table_launch(calls):
+    """A stand-in for `ntt_stream._launch` on CPU tensors: it records the
+    call and evaluates the compact tables it is handed (the plain stage
+    loop fed w[m], ws[m] under qs[m]), as csrc/ntt.cu reads them."""
+    def launch(x, w, ws, qs, inverse, name, cluster=0):
+        calls.append((tuple(x.shape), tuple(w.shape), name, cluster))
+        fn = ntt_torch.intt_with_tables if inverse else ntt_torch.ntt_with_tables
+        y = torch.stack([fn(x[m], w[m], ws[m], int(qs[m])) for m in range(x.shape[0])])
+        return y, bool(x.shape[1])
+    return launch
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n", [128, 1024, 8192])
-def test_schedule_model_equals_ntt_np(n, inverse):
-    """The kernel's schedule at the top of its input window, under P (the
-    largest modulus: the most headroom used in [0, 4q))."""
+def test_equals_the_stream_wrapper_at_one_modulus(monkeypatch, n, inverse):
+    """The kernel path of `ntt_pallas.transform` on a (2, 3, n) batch, with
+    the launch replaced by a stand-in that evaluates the tables it is
+    handed: one launch of shape (1, 6, n) with `ntt_torch.tables`' (1, n)
+    tables, the kernel's own cluster choice and the `ntt_grid` name; the
+    words of `ntt_stream.transform`'s kernel path at M = 1 and of the plain
+    version, under P with the last row at the top of the window (4q - 1
+    forward, 2q - 1 inverse).  On the card both launch csrc/ntt.cu
+    (tests/test_torch_cuda.py)."""
     q, psi, ipsi = _roots(n, 2)
-    x = _window_inputs(np.random.default_rng(50 + n), (1, n), q, inverse)[0]
-    got = schedule_model(x, q, ipsi if inverse else psi, inverse).astype(np.uint64)
-    red = x % np.uint64(q)
-    want = ntt_np.intt(red, q, ipsi) if inverse else ntt_np.ntt(red, q, psi)
-    assert np.array_equal(got, want)
+    root = ipsi if inverse else psi
+    x = _window_inputs(np.random.default_rng(50 + n), (2, 3, n), q, inverse)
+    x[-1, -1] = (2 if inverse else 4) * q - 1
+    t = cv.from_u64(x, CPU)
+    calls = []
+    monkeypatch.setattr(dispatch, "use_kernel", lambda *a: True)
+    monkeypatch.setattr(ntt_stream, "_launch", _table_launch(calls))
+    before = ntt_pallas.transform.launches
+    got = ntt_pallas.transform(t, q, root, inverse)
+    assert ntt_pallas.transform.launches == before + 1
+    assert calls == [((1, 6, n), (1, n), "ntt_grid", 0)]
+    assert got.shape == t.shape
+    want = ntt_stream.transform(t.reshape(1, 6, n), (q,), (root,), inverse).reshape(t.shape)
+    assert torch.equal(got, want)
+    plain = ntt_pallas.intt_plain if inverse else ntt_pallas.ntt_plain
+    assert torch.equal(got, plain(t, q, root))
 
 
 def test_bench_best_takes_only_bit_exact_forms_with_the_grid_form():

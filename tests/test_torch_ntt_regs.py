@@ -15,6 +15,15 @@ Every exchange must be a permutation of the n slots and, from n = 512 up,
 free of bank conflicts on both sides: the 16 lanes of each half-warp access
 16 distinct 8-byte bank pairs.
 
+`schedule_model(..., C)` splits the polynomial over a cluster of C = 2 or
+4 CTAs of T/C threads, as the kernel does below one wave: each CTA has
+its own n/C-word buffer, and the one exchange that moves words between
+CTAs (between forward passes 0 and 1) writes them into the owning CTA's
+buffer, a second one inverse.  `exchange_plan` checks each exchange per
+CTA (a permutation of its n/C slots, free of bank conflicts on both
+sides, each warp writing a register to one CTA) and that the cross
+exchange is the only one.
+
 Every comparison is word-exact.
 """
 
@@ -26,6 +35,7 @@ from aloha_tpu import ntt_np
 from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import ntt_torch
+from aloha_tpu_torch.ops import ntt_stream
 
 torch.set_num_threads(2)
 
@@ -49,18 +59,41 @@ def bot(logn: int, p: int) -> int:
     return max(0, top(logn, p) - geometry(logn)[1] + 1)
 
 
-def regbit(logn: int, p: int, b: int) -> int:
+def regbit(logn: int, p: int, b: int, logc: int = 0) -> int:
+    """The index bit of register bit b: the pass's own bits, then a short
+    pass's extras, the top index bits below the cluster rank's."""
     u = top(logn, p) - bot(logn, p) + 1
-    return bot(logn, p) + b if b < u else logn - 1 - (b - u)
+    return bot(logn, p) + b if b < u else logn - 1 - logc - (b - u)
 
 
-def off(logn: int, p: int, r: int) -> int:
-    return sum(((r >> b) & 1) << regbit(logn, p, b) for b in range(geometry(logn)[1]))
+def off(logn: int, p: int, r: int, logc: int = 0) -> int:
+    return sum(((r >> b) & 1) << regbit(logn, p, b, logc) for b in range(geometry(logn)[1]))
 
 
-def base(logn: int, p: int, j):
-    lo = bot(logn, p)
-    return (j & ((1 << lo) - 1)) | ((j >> lo) << (top(logn, p) + 1))
+def base(logn: int, p: int, j, logc: int = 0):
+    """The index bits thread J owns: its bits fill the bits the registers
+    leave, in increasing order (so its top logc bits, the cluster rank,
+    land on the top index bits in every pass but pass 0)."""
+    logr = geometry(logn)[1]
+    hi, lo = top(logn, p), bot(logn, p)
+    mid = max(0, logn - logc - (logr - (hi - lo + 1)) - hi - 1)
+    return ((j & ((1 << lo) - 1)) | (((j >> lo) & ((1 << mid) - 1)) << (hi + 1))
+            | ((j >> (lo + mid)) << (logn - logc)))
+
+
+def rankbit(logn: int, p: int, logc: int) -> int:
+    """The index bit where the cluster rank (thread bits LOGT - logc and
+    up) sits in pass p: below pass 0's register bits, else at the top."""
+    return (geometry(logn)[0] if p == 0 else logn) - logc
+
+
+def local(i, logn: int, rb: int, logc: int):
+    """Index i within its CTA's n/C words: the rank's logc bits at rb
+    swapped with the top logc bits, which are then dropped (i mod n/C when
+    the rank is on top)."""
+    m, hi = (1 << logc) - 1, logn - logc
+    swapped = (i & ~(m << rb) & ~(m << hi)) | (((i >> rb) & m) << hi) | (((i >> hi) & m) << rb)
+    return swapped & ((1 << hi) - 1)
 
 
 def swz(i):
@@ -97,57 +130,123 @@ def _objects(a):
 
 
 # ------------------------------------------------------- the schedule
-def check_exchange(slots, n: int):
-    """slots (T, R): the slot of each thread's register at one side of an
-    exchange.  A permutation of the n slots; from n = 512 up, the 16 lanes
-    of every half-warp hit 16 distinct 8-byte bank pairs (slot mod 16) in
-    every register's access."""
-    assert sorted(slots.ravel().tolist()) == list(range(n))
-    if n < 512:
-        return
+def check_banks(slots):
+    """slots (threads, R): the 16 lanes of every half-warp hit 16 distinct
+    8-byte bank pairs (slot mod 16) in every register's access."""
     for half in slots.reshape(-1, 16, slots.shape[1]):
         for r in range(slots.shape[1]):
             assert len(set((half[:, r] % 16).tolist())) == 16
 
 
-def schedule_model(x, w, ws, q: int, inverse: bool):
+def check_exchange(slots, words: int):
+    """slots (threads, R): the slot of each thread's register at one side of
+    an exchange into one buffer of `words` slots.  A permutation of the
+    slots and, from 512 words up, free of bank conflicts."""
+    assert sorted(slots.ravel().tolist()) == list(range(words))
+    if words >= 512:
+        check_banks(slots)
+
+
+def owner_map(logn: int, p: int, C: int):
+    """(idx, rank): idx (T, R) the index of each thread's register in pass
+    p; rank (T,) each thread's CTA in its cluster of C (its top bits)."""
+    logt, logr, _ = geometry(logn)
+    logc = C.bit_length() - 1
+    J = np.arange(1 << logt)
+    idx = base(logn, p, J, logc)[:, None] | np.array(
+        [off(logn, p, r, logc) for r in range(1 << logr)])[None, :]
+    return idx, J >> (logt - logc)
+
+
+def exchange_plan(logn: int, C: int, inverse: bool) -> list:
+    """The exchanges after each pass but the last, in the direction's order:
+    (dest, slots, cross) with dest (T, R) the CTA each register is written
+    to and slots (T, R) its slot there, by the next pass's map; cross when
+    any word leaves its CTA.  Checks that each CTA's buffer receives a
+    permutation of its n/C slots, that the next pass's threads own exactly
+    the words their CTA receives and read them free of bank conflicts, that
+    the writes are free of bank conflicts and each warp writes a register
+    to one CTA, and that a cluster makes one cross exchange, between
+    forward passes 0 and 1."""
+    passes = geometry(logn)[2]
+    logc = C.bit_length() - 1
+    words = (1 << logn) // C
+    order = list(range(passes - 1, -1, -1)) if inverse else list(range(passes))
+    plan = []
+    for p, pn in zip(order, order[1:]):
+        idx, rank = owner_map(logn, p, C)
+        rb = rankbit(logn, pn, logc)
+        dest = (idx >> rb) & (C - 1)
+        slots = swz(local(idx, logn, rb, logc))
+        nidx, nrank = owner_map(logn, pn, C)
+        assert ((nidx >> rb) & (C - 1) == nrank[:, None]).all()
+        for c in range(C):
+            assert sorted(slots[dest == c].tolist()) == list(range(words))
+            check_exchange(swz(local(nidx, logn, rb, logc))[nrank == c], words)
+        if words >= 512:
+            check_banks(slots)
+        if C > 1:
+            for warp in dest.reshape(-1, 32, dest.shape[1]):
+                assert (warp == warp[0]).all()
+        plan.append((dest, slots, bool((dest != rank[:, None]).any())))
+    assert [c for _, _, c in plan] == [C > 1 and {p, pn} == {0, 1}
+                                       for p, pn in zip(order, order[1:])]
+    return plan
+
+
+def schedule_model(x, w, ws, q: int, inverse: bool, C: int = 1):
     """csrc/ntt_regs.cuh on one polynomial x (n,) with compact tables w, ws
-    (n,): a[j, r] is register r of thread j.  Forward input < 4q, inverse
+    (n,), split over a cluster of C CTAs of T/C threads, each with its own
+    n/C-word buffer: a[J, r] is register r of thread J (CTA J >> (LOGT -
+    log2 C)).  A local exchange writes and reads back each CTA's own
+    buffer; the cross exchange writes into the owning CTA's: its buffer
+    `sh` forward (no pass has read it yet), a second buffer `xh` inverse
+    (the other CTAs may still read `sh`).  Forward input < 4q, inverse
     < 2q; canonical output."""
     n = len(x)
     logn = n.bit_length() - 1
     logt, logr, passes = geometry(logn)
+    logc = C.bit_length() - 1
     T, R = 1 << logt, 1 << logr
+    assert T // C >= 32 or C == 1
     x, w, ws = _objects(x), _objects(w), _objects(ws)
-    j = np.arange(T)
-    sh = np.full(n, None, dtype=object)
+    bufs = {"sh": np.full((C, n // C), None, dtype=object),
+            "xh": np.full((C, n // C), None, dtype=object)}
     out = np.full(n, None, dtype=object)
+    plan = exchange_plan(logn, C, inverse)
+    src = None  # the buffer the previous exchange wrote
     for k in range(passes):
         p = passes - 1 - k if inverse else k
-        idx = base(logn, p, j)[:, None] | np.array([off(logn, p, r) for r in range(R)])[None, :]
+        idx, rank = owner_map(logn, p, C)
+        bse = base(logn, p, np.arange(T), logc)
         if k == 0:
             a = _condsub(x[idx], q) if inverse else x[idx]
-        else:  # read back in place: the slots this thread writes below
-            check_exchange(swz(idx), n)
-            a = sh[swz(idx)]
+        else:  # each thread reads its words from its own CTA's buffer
+            read = swz(local(idx, logn, rankbit(logn, p, logc), logc))
+            a = bufs[src][rank[:, None], read]
             assert not any(v is None for v in a.ravel())
         lo_b, hi_b = bot(logn, p), top(logn, p)
         for b in (range(lo_b, hi_b + 1) if inverse else range(hi_b, lo_b - 1, -1)):
             rb = b - lo_b
-            t0 = ((n >> (b + 1)) if inverse else 1 << (logn - 1 - b)) + ((j >> lo_b) << (hi_b - b))
+            stage_base = (n >> (b + 1)) if inverse else 1 << (logn - 1 - b)
+            t0 = stage_base + (bse >> (b + 1))
             for hi in range(R >> (rb + 1)):
-                t = t0 + (off(logn, p, hi << (rb + 1)) >> (b + 1))
+                t = t0 + (off(logn, p, hi << (rb + 1), logc) >> (b + 1))
                 for lo in range(1 << rb):
                     r = (hi << (rb + 1)) | lo
                     assert (idx[:, r] >> b & 1 == 0).all()
                     assert (idx[:, r | 1 << rb] == idx[:, r] + (1 << b)).all()
-                    stage_base = (n >> (b + 1)) if inverse else 1 << (logn - 1 - b)
                     assert (t == stage_base + (idx[:, r] >> (b + 1))).all()
                     bfly = _gs if inverse else _ct
                     a[:, r], a[:, r | 1 << rb] = bfly(a[:, r], a[:, r | 1 << rb], w[t], ws[t], q)
         if k < passes - 1:
-            check_exchange(swz(idx), n)
-            sh[swz(idx)] = a
+            dest, slots, cross = plan[k]
+            src = "xh" if cross and inverse else "sh"
+            if cross:  # into a buffer no CTA has read yet
+                assert all(v is None for v in bufs[src].ravel())
+            elif k > 0:  # written back in place: exactly the slots this thread read
+                assert (dest == rank[:, None]).all() and (slots == read).all()
+            bufs[src][dest, slots] = a
         else:
             out[idx] = a if inverse else _condsub(_condsub(a, 2 * q), q)
     assert not any(v is None for v in out)
@@ -236,3 +335,65 @@ def test_geometry_at_the_kernel_lengths():
     # pass 0 reads i = j + T r; the last forward pass owns adjacent pairs
     assert [off(logn, 0, r) for r in range(3)] == [0, 512, 1024]
     assert base(logn, 3, np.arange(3)).tolist() == [0, 2, 4]
+
+
+#: (n, C, inverse) of the kernel's cluster instances: C = 2, 4 with T/C >=
+#: 32, forward from n = 1024 and inverse from n = 4096 (ntt_stream.max_cluster)
+CLUSTER_SHAPES = [(n, C, inverse) for n in (1024, 2048, 4096, 8192, 16384) for C in (2, 4)
+                  for inverse in (False, True) if C <= ntt_stream.max_cluster(n, inverse)]
+
+
+@pytest.mark.parametrize("n,C,inverse", CLUSTER_SHAPES)
+def test_schedule_model_on_a_cluster_equals_ntt_np(n, C, inverse):
+    """One polynomial split over a cluster of C CTAs: the same words as
+    `ntt_np`, the whole ring's tables under P (q1 at n = 16384), inputs
+    at the top of the window."""
+    q, psi, ipsi = _root(n, 2 if n <= CFG.n else 1)
+    root = ipsi if inverse else psi
+    x = _window_inputs(np.random.default_rng(90 + n + C), n, q, inverse)
+    w, ws = ntt_torch.twiddles_np(n, root, q)
+    got = schedule_model(x, w, ws, q, inverse, C)
+    red = x % np.uint64(q)
+    want = ntt_np.intt(red, q, root) if inverse else ntt_np.ntt(red, q, root)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("C", [2, 4])
+def test_schedule_model_on_a_cluster_on_shard_tables(C, inverse):
+    """Both shards' compact tables at D = 2 (n = 4096 each) on a cluster of
+    C CTAs: equal to the plain stage loop fed the same tables."""
+    n, q, D = CFG.n, CFG.moduli[0], 2
+    root = (CFG.ipsi if inverse else CFG.psi)[0]
+    rng = np.random.default_rng(100 + C)
+    for d in range(D):
+        w, ws, _ = ntt_torch.shard_tables(n, q, root, D, d, inverse, CPU)
+        x = _window_inputs(rng, n // D, q, inverse)
+        got = schedule_model(x, cv.to_u64(w), cv.to_u64(ws), q, inverse, C)
+        fn = ntt_torch.intt_with_tables if inverse else ntt_torch.ntt_with_tables
+        want = cv.to_u64(fn(cv.from_u64(x[None], CPU), w, ws, q))[0]
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,C", sorted({(n, C) for n, C, _ in CLUSTER_SHAPES}))
+def test_a_cluster_makes_one_cross_exchange(n, C):
+    """Each direction that has the instance: one exchange crosses CTAs,
+    the one between forward passes 0 and 1 (after the first forward pass,
+    before the last inverse one); every other keeps each word in its CTA at the slot it was read
+    from.  The rank sits at thread bits LOGT - log2 C and up, so at index
+    bits LOGT - log2 C and up in pass 0 and at the top in every other pass
+    (a short last pass's extra register bits go below it)."""
+    logn = n.bit_length() - 1
+    logt, _, passes = geometry(logn)
+    logc = C.bit_length() - 1
+    for inverse in (False, True):
+        if C > ntt_stream.max_cluster(n, inverse):
+            continue
+        crosses = [cross for _, _, cross in exchange_plan(logn, C, inverse)]
+        assert crosses == ([True] + [False] * (passes - 2) if not inverse
+                           else [False] * (passes - 2) + [True])
+    for p in range(passes):
+        idx, rank = owner_map(logn, p, C)
+        rb = rankbit(logn, p, logc)
+        assert ((idx >> rb) & (C - 1) == rank[:, None]).all()
+        assert rb == (logt if p == 0 else logn) - logc

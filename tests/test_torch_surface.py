@@ -111,11 +111,12 @@ def test_library_is_named_by_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libaloha_kernels_") and path.suffix == ".so"
-    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "ntt_grid.cu",
-                                                 "aut.cu", "probe_ops.cu", "probe_stages.cu",
-                                                 "probe_mxu.cu", "probe_dyn.cu", "probe_dma.cu",
-                                                 "modarith.cuh", "mxu_core.cuh"}
-    assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_aut", "aloha_probe_ops",
+    assert {p.name for p in _build._sources()} >= {"ntt.cu", "ks.cu", "ntt_mxu.cu", "aut.cu",
+                                                 "probe_ops.cu", "probe_stages.cu", "probe_mxu.cu",
+                                                 "probe_dyn.cu", "probe_dma.cu", "modarith.cuh",
+                                                 "mxu_core.cuh"}
+    assert set(_build.SIGNATURES) >= {"aloha_ntt", "aloha_ntt_cluster", "aloha_aut",
+                                      "aloha_probe_ops",
                                       "aloha_probe_stage_modes",
                                       "aloha_probe_lane_stages", "aloha_probe_mxu_rate",
                                       "aloha_probe_mxu_parts", "aloha_probe_dynstage",
@@ -288,3 +289,16 @@ def test_prepared_planes_round_trip():
     planes = [p.reshape(shape) for p in (klo, khi, *limbs)]
     k2, ks2 = cv.prepared_from_planes(planes, CFG, CPU)
     assert torch.equal(k2, k) and torch.equal(ks2, ks)
+
+
+def test_every_signature_matches_its_c_entry():
+    """Each ctypes signature names an `extern "C"` entry of csrc/*.cu with
+    as many parameters as it has argument types (ctypes passes what it is
+    told, so a missing argument would shift the rest silently)."""
+    import re
+
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    for name, argtypes in _build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
