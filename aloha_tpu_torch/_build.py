@@ -35,6 +35,8 @@ SIGNATURES = {
     "aloha_ntt_cluster": [_I] * 5,
     "aloha_ks_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "aloha_ks_tail": [_I] + [_P] * 12 + [_I] * 6 + [_P],
+    "aloha_ks_tail_c": [_I] + [_P] * 12 + [_I] * 7 + [_P],
+    "aloha_ks_cluster": [_I] * 3,
     "aloha_ntt_mxu": [_I] + [_P] * 8 + [_I] * 5 + [_P],
     "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],

@@ -90,6 +90,13 @@ __device__ __forceinline__ u64 barrett(u64 a, u64 b, u64 q, u64 iq, int w) {
   return condsub(diff, q);
 }
 
+// The stage loops ntt_smem and intt_smem: one shared-memory round trip and
+// one barrier a stage.  No kernel of a user's path runs them any more
+// (csrc/ntt.cu and csrc/ks.cu run csrc/ntt_regs.cuh's register passes):
+// ntt_smem serves only csrc/probe_stages.cu, the ports of
+// tools/stream_prof.py and stream_prof3.py (PERF.md §6 rows 11 and 13),
+// and intt_smem stays as its inverse.
+//
 // Forward negacyclic NTT of the n = 2^logn values in shared memory a[]:
 // natural order in (entries < 4q), bit-reversed order out, canonical.
 // Cooley-Tukey with Harvey's lazy butterflies: values ride in [0, 4q)

@@ -1,7 +1,8 @@
 // The negacyclic NTT/INTT of one polynomial per CTA, or per cluster of C
 // CTAs, as register passes: each thread holds R words and runs several
 // stages on them as one radix-R sub-transform in registers; shared memory
-// only exchanges words between passes.  csrc/ntt.cu launches it;
+// only exchanges words between passes.  csrc/ntt.cu launches it, and
+// csrc/ks.cu chains its transforms in registers (run's IN and OUT);
 // tests/test_torch_ntt_regs.py models the same schedule in NumPy.
 //
 // Geometry, for n = 2^LOGN: T = 2^LOGT threads of R = 2^LOGR words, T = n/16
@@ -226,11 +227,31 @@ __device__ __forceinline__ void stages(u64 (&a)[Geometry<LOGN, C>::R], int j, in
   }
 }
 
+// Where a transform's first pass finds its words and its last pass leaves
+// them (run's IN and OUT), so that a kernel can chain transforms:
+//   GLOBAL  in: x at the first pass's map (the inverse reduces it from
+//           [0, 2q) to [0, q)); out: y at the last pass's map;
+//   REGS    in: a[] already holds the first pass's words (in its range:
+//           < 4q forward, < q inverse); out: a[] keeps the last pass's
+//           words, canonical, for the caller's epilogue;
+//   SHARED  in: sh at the first pass's slots, written by the caller before
+//           a barrier (C = 1 only).
+// An inverse ends in forward pass 0's map, where a forward begins: an
+// INTT, an elementwise step on a[] and an NTT chain with no exchange and
+// no barrier between the transforms (the NTT's first exchange writes the
+// slots the INTT's last pass read, by the same thread).
+enum End : int { GLOBAL, REGS, SHARED };
+
 // Pass K of the direction's order (forward pass P), then the next pass.
-// The first pass reads x, the last writes y: in forward pass 0, i = J + T r
-// (a coalesced word a lane), in the last forward pass adjacent pairs (one
-// coalesced 16-byte access a lane when vec).
-template <int LOGN, int C, bool INV, int K>
+// The first pass reads x, the last writes y (IN, OUT = GLOBAL): in forward
+// pass 0, i = J + T r (a coalesced word a lane), in the last forward pass
+// adjacent pairs (one coalesced 16-byte access a lane when vec).
+// FIRST_CROSS: the transform's cross exchange is the kernel's first, so it
+// waits on the barrier every CTA arrived at when it started; a later one
+// follows an earlier cross exchange's barrier, which every CTA passed after
+// its last read of the buffer this one writes (the caller alternates sh).
+template <int LOGN, int C, bool INV, int K, End IN = GLOBAL, End OUT = GLOBAL,
+          bool FIRST_CROSS = true>
 __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int j,
                                     const u64* __restrict__ x, u64* __restrict__ y,
                                     const u64* __restrict__ w, const u64* __restrict__ ws, u64 q,
@@ -238,8 +259,9 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int
   using G = Geometry<LOGN, C>;
   constexpr int LAST = G::PASSES - 1, P = INV ? LAST - K : K, R = G::R;
   constexpr bool PAIRS = R > 1 && G::regbit(P, 0) == 0;
+  static_assert(IN != SHARED || C == 1, "a cluster's first pass reads registers or x");
   const int base = G::base(P, j);
-  if constexpr (K == 0) {
+  if constexpr (K == 0 && IN == GLOBAL) {
     if constexpr (PAIRS) {
 #pragma unroll
       for (int r = 0; r < R; r += 2) {
@@ -261,7 +283,7 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] = condsub(a[r], q);
     }
-  } else {
+  } else if constexpr (K > 0 || IN == SHARED) {
     // the inverse's last pass reads the cross exchange's own buffer
     const u64* src = (INV && C > 1 && P == 0) ? sh + G::WORDS : sh;
     from_shared<LOGN, C, P>(src, G::slot_of(P, base), a);
@@ -271,7 +293,7 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int
     constexpr int PN = INV ? P - 1 : P + 1;
     if constexpr (C > 1 && P + PN == 1) {  // the cross exchange
       u64* dst = INV ? sh + G::WORDS : sh;
-      cluster_wait();  // every CTA of the cluster runs
+      if constexpr (FIRST_CROSS) cluster_wait();  // every CTA of the cluster runs
       to_cluster<LOGN, C, P, PN>((unsigned)__cvta_generic_to_shared(dst), G::slot_of(PN, base), a);
       cluster_arrive();
       cluster_wait();
@@ -279,26 +301,28 @@ __device__ __forceinline__ void run(u64 (&a)[Geometry<LOGN, C>::R], u64* sh, int
       to_shared<LOGN, C, P, PN>(sh, G::slot_of(PN, base), a);
       __syncthreads();
     }
-    run<LOGN, C, INV, K + 1>(a, sh, j, x, y, w, ws, q, vec);
+    run<LOGN, C, INV, K + 1, IN, OUT, FIRST_CROSS>(a, sh, j, x, y, w, ws, q, vec);
   } else {
     if constexpr (!INV) {  // from [0, 4q) to [0, q); the inverse is canonical
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] = condsub(condsub(a[r], 2 * q), q);
     }
-    if constexpr (PAIRS) {
+    if constexpr (OUT == GLOBAL) {
+      if constexpr (PAIRS) {
 #pragma unroll
-      for (int r = 0; r < R; r += 2) {
-        u64* p = y + (base | G::off(P, r));
-        if (vec) {
-          *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(a[r], a[r + 1]);
-        } else {
-          p[0] = a[r];
-          p[1] = a[r + 1];
+        for (int r = 0; r < R; r += 2) {
+          u64* p = y + (base | G::off(P, r));
+          if (vec) {
+            *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(a[r], a[r + 1]);
+          } else {
+            p[0] = a[r];
+            p[1] = a[r + 1];
+          }
         }
-      }
-    } else {
+      } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r) y[base | G::off(P, r)] = a[r];
+        for (int r = 0; r < R; ++r) y[base | G::off(P, r)] = a[r];
+      }
     }
   }
 }

@@ -9,11 +9,18 @@ Replaces the TPU kernels `ks_kernel._head_body` and `ks_kernel._tail_body`
             (P-1)/2-rounded mod-down with correction NTTs -> x P^-1, plus
             the NTT-domain a-part ("rider") on part 0
 
-with the kernels in `csrc/ks.cu`.  Both are transform kernels, bound by
-64-bit integer issue and shared memory (their transforms are
-`csrc/modarith.cuh`'s stage loops `ntt_smem`/`intt_smem`); each
-ciphertext's intermediates stay in shared memory.  The head emits canonical words (the
-TPU's lazy fold59 output belonged to its MXU transform only).
+with the kernels in `csrc/ks.cu`.  Both run their transforms as
+`csrc/ntt_regs.cuh`'s register passes (16 words a thread, shared memory
+only between passes) and chain them in registers: an INTT ends in the map
+where an NTT begins, so the head's INTT, raise and NTT, and the tail's INTT
+and its L correction NTTs, follow one another with no exchange between the
+transforms; only the automorphism scatters the words once through shared
+memory.  The tail forms its inner products from 16-byte pairs of the
+digits and keys, at the maps its transforms read and write; a tail launch
+of few CTAs (at N = 8192) splits every polynomial over a cluster of 4
+CTAs (`cluster_size`).  The head emits
+canonical words (the TPU's lazy fold59 output belonged to its MXU
+transform only).
 
 Everything else here is plain PyTorch, as it was XLA around the Pallas
 kernels: key preparation, the NTT-domain automorphism gathers and the
@@ -53,10 +60,29 @@ def _consts(cfg: HEConfig, device: torch.device):
 
 
 def _check_ring(n: int) -> None:
-    """The kernels hold n words per thread block in registers (ks_head's
-    scatter, 16 per thread) and 2n in shared memory (ks_tail)."""
+    """The kernels have one compiled instance per power of two up to 8192:
+    a polynomial's n words in the registers of n/16 threads (one warp below
+    n = 512) and up to 2n words of shared memory a CTA (ks_tail's exchange
+    buffer and its P-part)."""
     if n & (n - 1) or n > 8192:
         raise ValueError(f"ring degree {n}: a power of two up to 8192 required")
+
+
+def tail_clusters(n: int) -> tuple:
+    """The CTAs a polynomial csrc/ks.cu's ks_tail has instances for at
+    length n: 1, and a cluster of 4 at n = 8192 (ks_head: 1 alone)."""
+    return (1, 4) if n == 8192 else (1,)
+
+
+def cluster_size(device: torch.device, ctas: int, n: int) -> int:
+    """CTAs per polynomial of a ks_tail launch of `ctas` CTAs at one a
+    polynomial (2 nb_out) on a CUDA device: 4 at n = 8192 while 2 a
+    polynomial would fill less than three quarters of the card's SMs
+    (csrc/ntt.cu's rule for 4), else 1."""
+    c = _build.lib().aloha_ks_cluster(device.index, ctas, n.bit_length() - 1)
+    if not c:
+        raise RuntimeError(f"no cluster size for device {device}")
+    return c
 
 
 # ------------------------------------------------------------------ ks_head
@@ -166,7 +192,7 @@ def ks_tail_plain(nd, rider, key, cfg: HEConfig, shared_inputs: bool = False):
 
 
 def ks_tail(nd, rider, key, cfg: HEConfig, kshoup=None,
-            shared_inputs: bool = False):
+            shared_inputs: bool = False, cluster: int = 0):
     """Raised digits (L+1, nb, L, N) + NTT-domain riders (L, nb, N) + key
     -> (L, nb_out, 2, N): [:, :, 0] = a_rot, [:, :, 1] = b_rot.
 
@@ -174,7 +200,10 @@ def ks_tail(nd, rider, key, cfg: HEConfig, kshoup=None,
     Shoup companions from `prepare_ksk` (None: Barrett products).
     Batched keys: nb = K blocks of nb/K ciphertexts, block c // (nb/K)
     under key c // (nb/K).  shared_inputs: all K keys read the same nb
-    ciphertexts, and the output is key-major (nb_out = K nb)."""
+    ciphertexts, and the output is key-major (nb_out = K nb).
+    cluster 0 lets the kernel choose how many CTAs share a polynomial
+    (`cluster_size`); one of `tail_clusters(N)` forces it (the card tests
+    and the timing probes; no caller on the main path)."""
     L, n = cfg.n_limbs, cfg.n
     nb_in = nd.shape[1]
     K = 1 if key.dim() == 2 else key.shape[0]
@@ -192,14 +221,16 @@ def ks_tail(nd, rider, key, cfg: HEConfig, kshoup=None,
     (fw, fws, q), (iw, iws, _), iq, pinv = _consts(cfg, nd.device)
     out = torch.empty((L, nb_out, 2, n), dtype=torch.int64, device=nd.device)
     if nb_out:
-        err = _build.lib().aloha_ks_tail(
+        args = (
             nd.device.index, nd.data_ptr(), rider.data_ptr(), key.data_ptr(),
             kshoup.data_ptr() if kshoup is not None else None,
             out.data_ptr(), fw.data_ptr(), fws.data_ptr(), iw.data_ptr(),
             iws.data_ptr(), q.data_ptr(), iq.data_ptr(), pinv.data_ptr(),
             L, nb_in, nb_out, nper, n.bit_length() - 1, cfg.mod_width,
-            dispatch.stream_of(nd),
         )
+        lib = _build.lib()
+        err = (lib.aloha_ks_tail_c(*args, cluster, dispatch.stream_of(nd)) if cluster
+               else lib.aloha_ks_tail(*args, dispatch.stream_of(nd)))
         _build.check(err, "ks_tail")
         ks_tail.launches += 1
     return out

@@ -6,9 +6,9 @@ Replaces the TPU kernel of tools/stream_prof3.py:29 (`make(reps)` ->
 `body`: REPS forward transforms of resident planes by the streaming stage
 loops, no DMA) with the `full` mode of `aloha_probe_stage_modes` in
 `csrc/probe_stages.cu` (the kernel of `stream_prof.stage_modes`):
-`ntt_smem` (csrc/modarith.cuh: the stage loop csrc/ks.cu's transforms
-run, 13 shared-memory round trips; csrc/ntt.cu runs csrc/ntt_regs.cuh's
-register passes instead), REPS times on nb polynomials held in shared
+`ntt_smem` (csrc/modarith.cuh: the stage loop, 13 shared-memory round
+trips, which no kernel of a user's path runs any more: csrc/ntt.cu and
+csrc/ks.cu run csrc/ntt_regs.cuh's register passes), REPS times on nb polynomials held in shared
 memory, one load and one store.  The marginal over REPS 20 and 120 (the
 TPU script's) at nb = 256 is the time of one such transform without the
 launch, loads and stores.

@@ -11,10 +11,15 @@ Phases, each printing its own line; any failure exits nonzero:
      (cuobjdump) of the rate kernel and of the tensor-core transform holds
      IGMMA and no IMMA; ptxas' registers and spill of each instance of
      csrc/ntt.cu's register-pass transform (45: one CTA a polynomial, and
-     clusters of 2 and 4 CTAs);
+     clusters of 2 and 4 CTAs) and of csrc/ks.cu's two kernels (one CTA a
+     polynomial at n = 1-8192; ks_tail also a cluster of 4 at 8192);
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
+     each ks case (the head hoisted at nb = 16 and 48 and with an
+     automorphism, the tail over shared, batched and single keys) also in
+     a CUDA-graph burst, and a tail that takes a cluster beside the same
+     launch forced onto one CTA a polynomial (equal words);
      then ntt at n = 2, 16, 128, 1024, 2048, 4096, 8192 and 16384, both
      directions, M = 1 and 3, nb = 1, 131, 132, 133 and 264, on words at
      the top of its input window (compared); ntt_mxu and its chain (k = 1,
@@ -74,6 +79,7 @@ Phases, each printing its own line; any failure exits nonzero:
      .tdb trace verified against the CPU, the rotations decrypting within
      1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
      per launch kind, and one profiled key-switch beside the fused rotate;
+     aut's main case (q0, nb = 1) also in a CUDA-graph burst;
   9. probes: the eight cost probes (aloha_tpu_torch.probes; csrc/
      probe_ops.cu, csrc/probe_stages.cu, csrc/probe_mxu.cu, csrc/
      probe_dyn.cu), each kernel in every variant or mode (op_probe v0-v14,
@@ -102,9 +108,11 @@ Phases, each printing its own line; any failure exits nonzero:
      and 4096 polynomials), beside its bound (bytes in and out over the HBM
      rate; the stages' INT32 instructions, the larger), the rate in GB/s,
      and copy_'s marginal, with all four kernels launched.
-The line before the last is a JSON object of the kernels (launches summed
-over the main paths, and per path; each kernel's bound from this run's
-shapes); the last line is {"ok": true, "device": {...}}.
+Then the order of redesign ("step 2 order": each kernel's launches x (time
+- bound), rows redesigned so far marked).  The line before the last is a
+JSON object of the kernels (launches summed over the main paths, and per
+path; each kernel's bound from this run's shapes); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -167,7 +175,7 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
-    return ntt_registers()
+    return ntt_registers(), ks_registers()
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -193,6 +201,32 @@ def ntt_registers() -> dict:
         fail(f"ptxas reported {len(usage)} instances of ntt_regs_kernel, not {NTT_INSTANCES}: "
              f"{usage}")
     print("build: ntt_regs_kernel registers/spill stores/spill loads: "
+          + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in sorted(usage.items())), flush=True)
+    return usage
+
+
+#: template instances of csrc/ks.cu's kernels: ks_head<LOGN> at n =
+#: 2^0..2^13 (one CTA a polynomial), ks_tail<LOGN, C> there at C = 1 and a
+#: cluster of 4 CTAs at n = 8192
+KS_INSTANCES = 14 + (14 + 1)
+
+
+def ks_registers() -> dict:
+    """{"head n=2^L C=c" or "tail ...": [registers, spill store bytes,
+    spill load bytes]} of csrc/ks.cu's kernels from ptxas' report."""
+    import re
+
+    from aloha_tpu_torch import _build
+
+    usage = {}
+    for name, use in _build.ptxas_usage("_kernelILi").items():
+        m = re.search(r"ks_(head|tail)_kernelILi(\d+)E(?:Li(\d+)E)?E", name)
+        if m:
+            usage[f"{m.group(1)} n=2^{m.group(2)} C={m.group(3) or 1}"] = list(use)
+    if len(usage) != KS_INSTANCES:
+        fail(f"ptxas reported {len(usage)} instances of ks_head/ks_tail_kernel, not "
+             f"{KS_INSTANCES}: {usage}")
+    print("build: ks_head/ks_tail_kernel registers/spill stores/spill loads: "
           + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in sorted(usage.items())), flush=True)
     return usage
 
@@ -377,15 +411,17 @@ def phase_kernels(card: str, dev):
          lambda: ntt_stream.transform_plain(x1, mod[L - 1:L], CFG.ipsi[L - 1:L], True),
          ntt_work(2 * B, 1, n, True))
 
-    # ks_head: hoisted (the request's baby steps) and with an automorphism
+    # ks_head: hoisted (the request's baby steps), with an automorphism, and
+    # hoisted at the giant steps' batch (3 B)
     b = rand((B, n), mod[:L])
+    b48 = rand((3 * B, n), mod[:L])
     e = pow(3, 5, 2 * n)
-    case("ks_head", f"hoisted nb={B}",
-         lambda: ksk_ops.ks_head(b, None, CFG),
-         lambda: ksk_ops.ks_head_plain(b, None, CFG), ks_head_work(B))
-    case("ks_head", f"aut nb={B}",
-         lambda: ksk_ops.ks_head(b, e, CFG),
-         lambda: ksk_ops.ks_head_plain(b, e, CFG), ks_head_work(B))
+    ks = [("ks_head", f"hoisted nb={B}", lambda: ksk_ops.ks_head(b, None, CFG),
+           lambda: ksk_ops.ks_head_plain(b, None, CFG), ks_head_work(B), 0),
+          ("ks_head", f"aut nb={B}", lambda: ksk_ops.ks_head(b, e, CFG),
+           lambda: ksk_ops.ks_head_plain(b, e, CFG), ks_head_work(B), 0),
+          ("ks_head", f"hoisted nb={3 * B} (giant steps)", lambda: ksk_ops.ks_head(b48, None, CFG),
+           lambda: ksk_ops.ks_head_plain(b48, None, CFG), ks_head_work(3 * B), 0)]
 
     # ks_tail: raised digits from the head, random keys of the KSK layout
     nd = ksk_ops.ks_head(b, None, CFG)
@@ -402,21 +438,31 @@ def phase_kernels(card: str, dev):
             for k, s in zip(keys3, (1, 2, 3))]
     k3 = torch.stack([p[0] for p in prep])
     s3 = torch.stack([p[1] for p in prep])
-    case("ks_tail", f"shared K=3 nb={B} (baby steps)",
-         lambda: ksk_ops.ks_tail(nd, rider, k3, CFG, kshoup=s3, shared_inputs=True),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, k3, CFG, shared_inputs=True),
-         ks_tail_work(B, 3 * B, 3, True))
-    nd48 = ksk_ops.ks_head(rand((3 * B, n), mod[:L]), None, CFG)
+    nd48 = ksk_ops.ks_head(b48, None, CFG)
     rider48 = rand((3 * B, n), mod[:L])
-    case("ks_tail", f"batched K=3 nb={3 * B} (giant steps)",
-         lambda: ksk_ops.ks_tail(nd48, rider48, k3, CFG, kshoup=s3),
-         lambda: ksk_ops.ks_tail_plain(nd48, rider48, k3, CFG), ks_tail_work(3 * B, 3 * B, 3, True))
-    case("ks_tail", f"single nb={B} shoup",
-         lambda: ksk_ops.ks_tail(nd, rider, prep[0][0], CFG, kshoup=prep[0][1]),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, prep[0][0], CFG), ks_tail_work(B, B, 1, True))
-    case("ks_tail", f"single nb={B} barrett",
-         lambda: ksk_ops.ks_tail(nd, rider, keys3[0], CFG),
-         lambda: ksk_ops.ks_tail_plain(nd, rider, keys3[0], CFG), ks_tail_work(B, B, 1, False))
+    # each tail's run takes the cluster (0: the kernel's choice) and its
+    # launch's CTA count (one a polynomial)
+    ks += [("ks_tail", f"shared K=3 nb={B} (baby steps)",
+            lambda c=0: ksk_ops.ks_tail(nd, rider, k3, CFG, kshoup=s3, shared_inputs=True,
+                                        cluster=c),
+            lambda: ksk_ops.ks_tail_plain(nd, rider, k3, CFG, shared_inputs=True),
+            ks_tail_work(B, 3 * B, 3, True), 3 * B * 2),
+           ("ks_tail", f"batched K=3 nb={3 * B} (giant steps)",
+            lambda c=0: ksk_ops.ks_tail(nd48, rider48, k3, CFG, kshoup=s3, cluster=c),
+            lambda: ksk_ops.ks_tail_plain(nd48, rider48, k3, CFG),
+            ks_tail_work(3 * B, 3 * B, 3, True), 3 * B * 2),
+           ("ks_tail", f"single nb={B} shoup",
+            lambda c=0: ksk_ops.ks_tail(nd, rider, prep[0][0], CFG, kshoup=prep[0][1],
+                                        cluster=c),
+            lambda: ksk_ops.ks_tail_plain(nd, rider, prep[0][0], CFG),
+            ks_tail_work(B, B, 1, True), B * 2),
+           ("ks_tail", f"single nb={B} barrett",
+            lambda c=0: ksk_ops.ks_tail(nd, rider, keys3[0], CFG, cluster=c),
+            lambda: ksk_ops.ks_tail_plain(nd, rider, keys3[0], CFG),
+            ks_tail_work(B, B, 1, False), B * 2)]
+    for kernel, label, run, plain, work, ctas in ks:
+        case(kernel, label, run, plain, work)
+        ks_graph(results, card, dev, kernel, label, run, ctas)
 
     # ntt_mxu: each modulus alone, both directions; then the fused chain
     for m, name in enumerate(("q0", "q1", "P")):
@@ -437,6 +483,28 @@ def phase_kernels(card: str, dev):
     ntt_shapes(dev, results)
     mxu_shapes(dev, results)
     return results
+
+
+def ks_graph(results: dict, card: str, dev, kernel: str, label: str, run, ctas: int):
+    """A ks case's graph-burst time (graph_check) beside the cluster a
+    ks_tail launch of `ctas` CTAs takes (ks_kernel.cluster_size; ks_head:
+    ctas 0, one CTA a polynomial) and, where that is a cluster, the same
+    launch forced onto one CTA a polynomial (run(1)) in a graph, its words
+    compared; into results["ks_timing"][kernel][label]."""
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ks_kernel as ksk_ops
+    from aloha_tpu_torch.probes import common
+
+    g_ms = graph_check(results, card, kernel, label, run)
+    rec = {"ms": next(r[2] for r in results[kernel] if r[0] == label) / 1e3, "graph_ms": g_ms,
+           "C": ksk_ops.cluster_size(dev, ctas, CFG.n) if ctas else 1}
+    if rec["C"] > 1:
+        want = run()
+        compare(kernel, f"{label} C=1 against C={rec['C']}", lambda: run(1), lambda: want)
+        rec["c1_graph_ms"] = common.graph_ms(lambda: run(1))
+        print(f"kernel {kernel} {label}: C={rec['C']}, graph {g_ms * 1e3:.2f} us; at C=1 graph "
+              f"{rec['c1_graph_ms'] * 1e3:.2f} us on {card}", flush=True)
+    results.setdefault("ks_timing", {}).setdefault(kernel, {})[label] = rec
 
 
 #: lengths (those callers use and the template's ends) and batches (one
@@ -1039,6 +1107,7 @@ def phase_multiply(card: str, dev, results: dict):
 
 
 AUT_OPS = 6  # per coefficient: index product, mask, compare, 64-bit q - x (2), select
+AUT_MAIN = "q0 nb=1 e=9"  # aut's case in the kernels line: the ISA's shape, exponent 3^2
 
 
 def aut_work(nb: int, n: int):
@@ -1092,9 +1161,12 @@ def phase_isa(card: str, dev, results: dict):
             x[-1, 1::3] = np.uint64(q)
             x = cv.from_u64(x, dev)
             for e in exps:
-                check(results, card, "aut", f"{name} nb={nb} e={e}",
+                label = f"{name} nb={nb} e={e}"
+                check(results, card, "aut", label,
                       lambda: aut.automorphism(x, e, q), lambda: aut.automorphism_plain(x, e, q),
                       aut_work(nb, n), 2, 10)
+                if label == AUT_MAIN:  # its device time, for the order of redesign
+                    graph_check(results, card, "aut", label, lambda: aut.automorphism(x, e, q))
 
     # 2. set-up: the full SPM and KSK memory on the card, rotation keys for
     #    components 1, 2, 4, 8 in their slots, B fresh encryptions and one
@@ -1328,16 +1400,17 @@ def _library_rate(card: str, results: dict, x, w):
     results.setdefault("library_graph", {})["probe_mxu"] = graph_us / 1e3
 
 
-def graph_check(results: dict, card: str, kernel: str, label: str, fn):
-    """The graph-burst time of one call of the kernel's case `label`, beside
-    its eager time from `check`."""
+def graph_check(results: dict, card: str, kernel: str, label: str, fn) -> float:
+    """The graph-burst time (ms) of one call of the kernel's case `label`,
+    beside its eager time from `check`; into results["graph"][kernel][label]."""
     from aloha_tpu_torch.probes import common
 
     g_us = common.graph_ms(fn) * 1e3
     k_us = next(r[2] for r in results[kernel] if r[0] == label)
     print(f"kernel {kernel} {label}: eager {k_us:.2f} us, graph {g_us:.2f} us per call on {card}",
           flush=True)
-    results.setdefault("graph", {})[kernel] = g_us / 1e3
+    results.setdefault("graph", {}).setdefault(kernel, {})[label] = g_us / 1e3
+    return g_us / 1e3
 
 
 def phase_probes(card: str, dev, results: dict):
@@ -1563,18 +1636,28 @@ def phase_probes(card: str, dev, results: dict):
     return launches
 
 
+#: kernels whose design step 2 has already redone (PERF.md §6 names when)
+REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
+              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail"}
+
+
 def step2_order(kernels) -> list:
     """The kernels in the order a redesign should take them: first those
     slower than their one-call library equivalent, by the factor ms /
     library_ms (both eager: calls enqueued back to back between two CUDA
     events, as every kernel's ms); then the rest by the time the main paths
-    lose to the bound, launches x (ms - bound_ms)."""
+    lose to the bound, launches x (ms - bound_ms).  Kernels already
+    redesigned (REDESIGNED) are marked."""
     lib = sorted((k for k in kernels if k["library_ms"] and k["ms"] > k["library_ms"]),
                  key=lambda k: -k["ms"] / k["library_ms"])
     rest = sorted((k for k in kernels if k not in lib),
                   key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
-    return ([f"{k['name']} {k['ms'] / k['library_ms']:.2f}x library" for k in lib]
-            + [f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms lost" for k in rest])
+    def done(k):
+        return " (redesigned)" if k["name"] in REDESIGNED else ""
+
+    return ([f"{k['name']} {k['ms'] / k['library_ms']:.2f}x library{done(k)}" for k in lib]
+            + [f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms lost{done(k)}"
+               for k in rest])
 
 
 def main():
@@ -1587,7 +1670,7 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        registers = phase_build()
+        registers, ks_registers_ = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1628,8 +1711,7 @@ def main():
                             None, f"fwd D=1 d=0 nb={SHARD_NB}"),
         "ntt_grid": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_pallas.py:378",
                      None, f"fwd q0 nb={GRID_NB} n={n}"),
-        "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102",
-                None, f"q0 nb=1 e={pow(3, 2, 2 * n)}"),
+        "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102", None, AUT_MAIN),
         "probe_ops": ("aloha_tpu_torch/csrc/probe_ops.cu", "tools/op_probe.py:263", None,
                       f"v0 nb={PROBE_NB} reps={PROBE_REPS}"),
         "probe_fwd_reps": ("aloha_tpu_torch/csrc/probe_stages.cu", "tools/stream_prof3.py:29",
@@ -1668,8 +1750,8 @@ def main():
                  "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
                  "bound_ms": b_us / 1e3, "bound_by": b_by,
                  "library_ms": results.get("library", {}).get(name), "shape": main_case}
-        if name in results.get("graph", {}):
-            entry["graph_ms"] = results["graph"][name]
+        if main_case in results.get("graph", {}).get(name, {}):
+            entry["graph_ms"] = results["graph"][name][main_case]
             entry["library_graph_ms"] = results.get("library_graph", {}).get(name)
         if also:
             entry["also_replaces"] = also
@@ -1681,6 +1763,10 @@ def main():
         if name == "ntt":
             entry["isa_shape"] = results["isa_shape"]
             entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}
+        if name in ("ks_head", "ks_tail"):
+            entry["timing"] = results["ks_timing"][name]
+            entry["registers"] = {k: v for k, v in ks_registers_.items()
+                                  if k.startswith(name[3:]) and "2^13 " in k}
         kernels.append(entry)
     print("step 2 order: " + ", ".join(step2_order(kernels)), flush=True)
     print(json.dumps({"kernels": kernels}))

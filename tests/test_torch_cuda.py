@@ -358,19 +358,28 @@ def test_he_torch_encode_on_card_matches_cpu(dev):
     assert torch.equal(ht.encode(c.to(dev), CFG).cpu(), ht.encode(c, CFG))
 
 
-@pytest.mark.parametrize("step_exp", [None, pow(3, 5, 2 * N), 2 * N - 1])
-def test_ks_head_kernel_matches_plain(dev, step_exp):
-    b = _residues(np.random.default_rng(2), (4,), CFG.moduli[:L], dev)
+#: batches that span csrc/ks.cu's cluster rule at N = 8192: ks_tail takes
+#: C = 4 at few CTAs (every mode at nb = 1, the single key at nb = 16),
+#: C = 1 nearer and above one wave; ks_head always C = 1
+KS_NBS = [1, 16, 48, 64]
+
+
+@pytest.mark.parametrize("nb", KS_NBS)
+@pytest.mark.parametrize("step_exp", [None, 1, pow(3, 5, 2 * N), 2 * N - 1])
+def test_ks_head_kernel_matches_plain(dev, step_exp, nb):
+    b = _residues(np.random.default_rng(2), (nb,), CFG.moduli[:L], dev)
     got = ks_kernel.ks_head(b, step_exp, CFG)
     torch.cuda.synchronize()
     assert torch.equal(got, ks_kernel.ks_head_plain(b, step_exp, CFG))
 
 
-@pytest.mark.parametrize("mode", ["single-barrett", "single-shoup", "batched", "shared"])
-def test_ks_tail_kernel_matches_plain(dev, mode):
+def _tail_case(mode, nb, dev):
+    """(nd, rider, key, kshoup, shared) of a ks_tail launch in `mode` with
+    nb ciphertexts in (batched keys: two blocks of nb, one per key)."""
     rng = np.random.default_rng(3)
-    nd = _residues(rng, (4, L), CFG.moduli, dev)
-    rider = _residues(rng, (4,), CFG.moduli[:L], dev)
+    nb_in = 2 * nb if mode == "batched" else nb
+    nd = _residues(rng, (nb_in, L), CFG.moduli, dev)
+    rider = _residues(rng, (nb_in,), CFG.moduli[:L], dev)
     raw = [_key(rng, dev) for _ in range(2)]
     prep = [ks_kernel.prepare_ksk(k, CFG, aut_exp=pow(3, i + 1, 2 * N))
             for i, k in enumerate(raw)]
@@ -381,10 +390,37 @@ def test_ks_tail_kernel_matches_plain(dev, mode):
         "batched": (*stacked, False),
         "shared": (*stacked, True),
     }[mode]
+    return nd, rider, key, kshoup, shared
+
+
+@pytest.mark.parametrize("nb", KS_NBS)
+@pytest.mark.parametrize("mode", ["single-barrett", "single-shoup", "batched", "shared"])
+def test_ks_tail_kernel_matches_plain(dev, mode, nb):
+    nd, rider, key, kshoup, shared = _tail_case(mode, nb, dev)
     got = ks_kernel.ks_tail(nd, rider, key, CFG, kshoup=kshoup, shared_inputs=shared)
     torch.cuda.synchronize()
     assert torch.equal(got, ks_kernel.ks_tail_plain(nd, rider, key, CFG,
                                                     shared_inputs=shared))
+
+
+@pytest.mark.parametrize("nb", KS_NBS)
+def test_ks_kernels_at_one_cta_equal_the_chosen_cluster(dev, nb):
+    """Each ks_tail launch forced onto every cluster it has an instance for
+    (`tail_clusters`: one CTA a polynomial and 4) gives the words of the
+    cluster the kernel chooses; a cluster with no instance (2) raises."""
+    for mode in ("single-shoup", "shared", "batched"):
+        nd, rider, key, kshoup, shared = _tail_case(mode, nb, dev)
+
+        def run(c):
+            return ks_kernel.ks_tail(nd, rider, key, CFG, kshoup=kshoup, shared_inputs=shared,
+                                     cluster=c)
+
+        want = run(0)
+        for c in ks_kernel.tail_clusters(N):
+            assert torch.equal(run(c), want), (mode, c)
+        with pytest.raises(RuntimeError, match="ks_tail"):
+            run(2)
+    torch.cuda.synchronize()
 
 
 def test_serving_chain_on_card_matches_he_np(dev):
