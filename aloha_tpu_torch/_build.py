@@ -28,6 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint64
+_L = ctypes.c_int64
 
 #: C entry points and their argument types: (device, pointers..., ints..., stream).
 SIGNATURES = {
@@ -38,7 +39,7 @@ SIGNATURES = {
     "aloha_ks_tail_c": [_I] + [_P] * 12 + [_I] * 7 + [_P],
     "aloha_ks_cluster": [_I] * 3,
     "aloha_ntt_mxu": [_I] + [_P] * 8 + [_I] * 5 + [_P],
-    "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_P],
+    "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_L, _P],
     "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_stage_modes": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_lane_stages": [_I] + [_P] * 4 + [_U] + [_I] * 4 + [_P],

@@ -36,5 +36,7 @@ def check(t: torch.Tensor, shape, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on t's device, read without
+    building a `torch.cuda.Stream` object (which cost 3-8 µs of a wrapper's
+    host time a call on the H100's host, PERF.md §6)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

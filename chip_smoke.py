@@ -67,9 +67,11 @@ Phases, each printing its own line; any failure exits nonzero:
      (CRT over both limbs at Delta^2), the rescaled one within 0.15, the
      two rotations equal, ciphertext 0 word-exact against the port's plain
      path on CPU tensors, and ntt_grid, ntt, ks_head, ks_tail launched;
-  8. isa: aut (csrc/aut.cu) under q0, q1 and P at N=8192, nb=1 and 64, the
-     12 rotation exponents 3^(2^k) and 2N-1 (one row of 0 and q), against
-     its plain version; then the HE vector-ISA replay: an AlohaDevice with
+  8. isa: aut (csrc/aut.cu) under q0, q1 and P at N=8192, nb=1, 64 and 133
+     and nb=16 at row stride 2n (a view of every other row, as the multiply
+     path hands it in), and at n = 128 and 1024, nb = 1, for the 12
+     rotation exponents 3^(2^k) and 2n-1 (one row of 0 and q), against its
+     plain version; then the HE vector-ISA replay: an AlohaDevice with
      the full SPM and KSK memory on the card, rotation keys for 1, 2, 4, 8,
      and a HostRunner op-list in the reference's case3 format (encode, then
      per ciphertext of B=16 load, mul_plain, rotate by 2 and by 4, hom_add,
@@ -79,7 +81,8 @@ Phases, each printing its own line; any failure exits nonzero:
      .tdb trace verified against the CPU, the rotations decrypting within
      1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
      per launch kind, and one profiled key-switch beside the fused rotate;
-     aut's main case (q0, nb = 1) also in a CUDA-graph burst;
+     aut's main case (q0, nb = 1, e = 9) and its nb = 16 at stride 2n and
+     nb = 64 cases also in a CUDA-graph burst;
   9. probes: the eight cost probes (aloha_tpu_torch.probes; csrc/
      probe_ops.cu, csrc/probe_stages.cu, csrc/probe_mxu.cu, csrc/
      probe_dyn.cu), each kernel in every variant or mode (op_probe v0-v14,
@@ -1108,6 +1111,13 @@ def phase_multiply(card: str, dev, results: dict):
 
 AUT_OPS = 6  # per coefficient: index product, mask, compare, 64-bit q - x (2), select
 AUT_MAIN = "q0 nb=1 e=9"  # aut's case in the kernels line: the ISA's shape, exponent 3^2
+#: (nb, n, k) of phase 8's aut cases, rows k n apart: the ISA's shape, one
+#: wave and a half, the multiply path's halves of (b, a) pairs, just above
+#: a wave, and the short lengths at nb = 1
+AUT_SHAPES = [(1, 8192, 1), (64, 8192, 1), (16, 8192, 2), (133, 8192, 1), (1, 128, 1),
+              (1, 1024, 1)]
+#: aut cases also timed in a CUDA-graph burst
+AUT_GRAPH = (AUT_MAIN, "q0 nb=16 stride=2n e=9", "q0 nb=64 e=9")
 
 
 def aut_work(nb: int, n: int):
@@ -1148,24 +1158,24 @@ def phase_isa(card: str, dev, results: dict):
     q0 = CFG.moduli[0]
     cpu = torch.device("cpu")
 
-    # 1. the automorphism kernel against its plain version: q0, q1, P;
-    #    nb = 1 (the ISA's shape) and 64; the 12 rotation exponents and 2N-1;
-    #    one row holding 0 and q
+    # 1. the automorphism kernel against its plain version: q0, q1, P; the
+    #    12 rotation exponents and 2N-1; one row holding 0 and q; at AUT_SHAPES
     rng = np.random.default_rng(SEED + 7)
-    exps = [pow(3, 1 << k, 2 * n) for k in range(12)] + [2 * n - 1]
     for m, name in enumerate(("q0", "q1", "P")):
         q = CFG.moduli[m]
-        for nb in (1, 64):
-            x = rng.integers(0, q, size=(nb, n), dtype=np.uint64)
-            x[-1, ::3] = 0
-            x[-1, 1::3] = np.uint64(q)
-            x = cv.from_u64(x, dev)
-            for e in exps:
-                label = f"{name} nb={nb} e={e}"
+        for nb, length, k in AUT_SHAPES:
+            x = rng.integers(0, q, size=(nb, k, length), dtype=np.uint64)
+            x[-1, :, ::3] = 0
+            x[-1, :, 1::3] = np.uint64(q)
+            x = cv.from_u64(x, dev)[:, 0, :]  # at k > 1 a view of rows k length apart
+            shape = (f"{name} nb={nb}" + (f" stride={k}n" if k > 1 else "")
+                     + (f" n={length}" if length != n else ""))
+            for e in [pow(3, 1 << j, 2 * length) for j in range(12)] + [2 * length - 1]:
+                label = f"{shape} e={e}"
                 check(results, card, "aut", label,
                       lambda: aut.automorphism(x, e, q), lambda: aut.automorphism_plain(x, e, q),
-                      aut_work(nb, n), 2, 10)
-                if label == AUT_MAIN:  # its device time, for the order of redesign
+                      aut_work(nb, length), 2, 10)
+                if label in AUT_GRAPH:  # device time, for the order of redesign
                     graph_check(results, card, "aut", label, lambda: aut.automorphism(x, e, q))
 
     # 2. set-up: the full SPM and KSK memory on the card, rotation keys for
@@ -1638,7 +1648,7 @@ def phase_probes(card: str, dev, results: dict):
 
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
-              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail"}
+              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut"}
 
 
 def step2_order(kernels) -> list:
@@ -1760,6 +1770,8 @@ def main():
             entry["bound_ns"] = {k: v[1] for k, v in results["marginal"][name].items()}
         if name == "ntt_grid":
             entry["timing"] = results["grid_timing"]
+        if name == "aut":
+            entry["timing"] = {k: {"graph_ms": v} for k, v in results["graph"]["aut"].items()}
         if name == "ntt":
             entry["isa_shape"] = results["isa_shape"]
             entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}

@@ -497,6 +497,62 @@ def test_aut_kernel_matches_plain(dev, n, m):
         assert torch.equal(got, aut.automorphism_plain(x, e, q)), e
 
 
+@pytest.mark.parametrize("n", [128, 1024, 8192])
+@pytest.mark.parametrize("nb", [1, 16, 133])
+def test_aut_kernel_strided_rows_match_plain(dev, nb, n):
+    """The automorphism kernel on rows at stride 2n (each half of (nb, 2, n)
+    pairs, as rotate_per_transform hands them in) and on the same rows
+    made contiguous, under q0, q1 and P, for the rotation exponents and 2n
+    - 1; the last pair holds 0 and q.  One launch a call; the output is
+    contiguous."""
+    exps = [pow(3, 1 << k, 2 * n) for k in range(12)] + [2 * n - 1]
+    for m in range(3):
+        q = CFG.moduli[m]
+        x = np.random.default_rng(70 + nb + n + m).integers(0, q, size=(nb, 2, n), dtype=np.uint64)
+        x[-1, :, ::3] = 0
+        x[-1, :, 1::3] = np.uint64(q)
+        pairs = cv.from_u64(x, dev)
+        assert aut.rows(pairs[:, 0, :])[1] == (2 * n if nb > 1 else n)
+        for rows in (pairs[:, 0, :], pairs[:, 1, :], pairs[:, 1, :].contiguous()):
+            for e in exps:
+                before = aut.automorphism.launches
+                got = aut.automorphism(rows, e, q)
+                torch.cuda.synchronize()
+                assert aut.automorphism.launches == before + 1
+                assert got.is_contiguous()
+                assert torch.equal(got, aut.automorphism_plain(rows, e, q)), (m, e)
+
+
+def test_rotate_per_transform_hands_strided_rows_to_aut(dev, monkeypatch):
+    """rotate_per_transform's 2L automorphisms take the INTT's (b, a) pairs
+    in place (row stride 2N: no copy before the kernel), and its words
+    equal the fused rotate's."""
+    from aloha_tpu_torch import _build
+
+    real, strides = _build.lib(), []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def aloha_aut(self, *args):
+            strides.append(args[7])
+            return real.aloha_aut(*args)
+
+    rng = np.random.default_rng(71)
+    a, b = (_residues(rng, (3,), CFG.moduli[:L], dev).transpose(0, 1).contiguous()
+            for _ in range(2))
+    rk = keys.gen_rotation_key(keys.gen_secret(CFG, rng=np.random.default_rng(72)), 1, CFG,
+                               rng=np.random.default_rng(73))
+    tk = cv.ksk_from_np(rk, CFG, dev)
+    fused = ht.rotate((a, b), 1, tk, CFG)
+    monkeypatch.setattr(_build, "lib", lambda: Recorder())
+    per = ht.rotate_per_transform((a, b), 1, tk, CFG)
+    torch.cuda.synchronize()
+    assert strides == [2 * N] * (2 * L)
+    assert torch.equal(per[0], fused[0]) and torch.equal(per[1], fused[1])
+
+
 def test_isa_device_on_card_matches_cpu(dev):
     """The ISA key-switch, mul_plain and hom_add through AlohaDevice on the
     card equal the same launches on CPU tensors; the key-switch launches the

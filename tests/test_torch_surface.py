@@ -184,7 +184,7 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
 @pytest.mark.parametrize("module", ["op_probe", "stream_prof", "stream_prof2", "stream_prof3",
                                     "probe_mxu", "probe_mxu_parts", "probe_dynstage",
                                     "probe_dynsub", "dma_bisect", "dma_bisect_doublebuf",
-                                    "dma_bisect_tblread", "dma_bisect_stages"])
+                                    "dma_bisect_tblread", "dma_bisect_stages", "aut_timing"])
 def test_probe_entry_points_refuse_to_run_without_cuda(module):
     """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
     no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
