@@ -2,7 +2,9 @@
 
 A probe launches one CTA per polynomial (or block of rows) with its words
 in shared memory for the whole launch, and repeats a step REPS times on
-them.  Where a TPU script chained K separate calls, the port repeats inside
+them; the lane-stage probe (`stream_prof2`) is the exception: 16 lanes of a
+warp hold each 128-word group in registers, and lanes trade words by
+shuffles.  Where a TPU script chained K separate calls, the port repeats inside
 one launch instead: a call of this port's wrappers costs 20-100 µs of host
 time (the Python checks, `torch.empty_like`, `dispatch.stream_of`, ctypes
 and the launch; PERF.md §6-7), so a chain of launches of a few µs of device

@@ -15,11 +15,38 @@ position, as the TPU applies its table row elementwise.  Modes:
 - nobfly: exchange and add only (both words become their sum, the 32-bit
   halves added separately).
 
+The kernel: no pair leaves its aligned 128-word group, the TPU script's
+128-lane row, so 16 lanes of a warp hold a group in registers for the
+whole launch, 8 words a lane (nb * 32 warps, 4 a CTA).  Register bits 1
+and 2 of a word hold its index bits 5 and 6 for good, register bit 0 one
+more, the lane bits the rest.  A stage at a bit that no register holds
+first trades its lane bit with register bit 0: lanes lane and lane ^ 2^p
+swap half their words by `__shfl_xor_sync`.  So every butterfly is a whole
+pair in one lane (statT's two products of one twiddle and operand are
+one; full's and statS's are two, one a word, even where the pair's
+twiddles are equal), and where the words sit is tracked at run time (a
+layout of 3 integers, the same in every lane but one).  The
+distance is a runtime value, as in the TPU body: only the register bit of
+the pairs and whether a twiddle serves the whole group (table rows up to 6)
+select a body, by branches uniform across the warp; statS's distance 16 is
+a compile-time constant and never trades.  Above row 6 each word loads its
+twiddle through the read-only path.  No shared memory, no barrier.
+
 Each mode runs at nstages 2 and 13, REPS 20 (the TPU script's) and 100
-at nb = 256.
+at nb = 256 (the marginal), and one call at nb = 8, 3 repetitions
+(chip_smoke.py's timed case) eager (`common.time_ms`) and in a CUDA-graph
+burst (`common.graph_ms`).  Beyond the wrapper, `main` reads only
+`common`, the plain helpers and the C entry from the package, so run as a
+file (`python aloha_tpu_torch/probes/stream_prof2.py`) with an older tree
+first on PYTHONPATH it times that tree's kernel.
 
 Bound on the H100: integer issue, `ops(mode, nstages)` INT32 instructions
-per polynomial per repetition.
+per polynomial per repetition: the yardstick every tree is timed against,
+which charges each pair its index arithmetic.  `needed_ops(mode, nstages)`
+counts only what the function needs once a pair is two registers of one
+lane, as in this kernel (no pair index; a twiddle index a word only above
+table row 6, one a group below; none for statT and nobfly): the least work,
+beside which the kernel's share of its bound is read.
 """
 
 from __future__ import annotations
@@ -36,6 +63,7 @@ MODES = ("full", "statT", "statS", "nobfly")
 NSTAGES = (2, 13)
 CASES = tuple(f"{m}-{n}" for m in MODES for n in NSTAGES)
 REPS = (20, 100)
+SMALL = (8, 3)  # nb, reps of one timed call (chip_smoke.py times every probe at it)
 #: INT32 instructions of one lane stage on one pair: two twiddle indices and
 #: two Shoup products (one each for the top and bottom word); statT's two
 #: products are one (the same twiddle and operand)
@@ -45,6 +73,17 @@ PAIR_OPS = {
     "statS": 2 * C.INDEX + C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
     "nobfly": C.INDEX + 2,
 }
+
+#: INT32 instructions of one lane stage on one pair that the function needs
+#: when the pair is two registers of one lane: PAIR_OPS without the
+#: indices (`needed_ops` adds the twiddle indices); nobfly's two 32-bit adds
+NEEDED_PAIR_OPS = {
+    "full": C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
+    "statT": C.CONDSUB + C.SHOUP + C.ADD64 + 2 * C.ADD64,
+    "statS": C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
+    "nobfly": 2,
+}
+UNIFORM_ROWS = C.LOGN - 7  # table rows up to this one: one twiddle a 128-word group
 
 
 def parse(case: str):
@@ -56,6 +95,18 @@ def parse(case: str):
 def ops(mode: str, nstages: int) -> int:
     """INT32 instructions of one repetition on one polynomial."""
     return nstages * C.N // 2 * PAIR_OPS[mode]
+
+
+def needed_ops(mode: str, nstages: int) -> int:
+    """INT32 instructions of one repetition on one polynomial that the
+    function needs: NEEDED_PAIR_OPS a pair, and for full and statS one
+    twiddle index (C.INDEX) a 128-word group at table rows up to
+    UNIFORM_ROWS and one a word above."""
+    total = nstages * C.N // 2 * NEEDED_PAIR_OPS[mode]
+    if mode in ("full", "statS"):
+        total += sum(C.INDEX * (C.N // 128 if s % C.LOGN <= UNIFORM_ROWS else C.N)
+                     for s in range(nstages))
+    return total
 
 
 def _check(mode: str, nstages: int) -> None:
@@ -112,14 +163,31 @@ def measure(cases, device):
     return rows
 
 
+def measure_small(cases, device):
+    """[(case, eager ms, graph ms)] of one call at nb, reps = SMALL."""
+    x = C.resident_data(SMALL[0], device)
+    rows = []
+    for case in cases:
+        mode, nstages = parse(case)
+        run = lambda m=mode, k=nstages: lane_stages(x, m, k, SMALL[1])  # noqa: E731
+        rows.append((case, C.time_ms(run), C.graph_ms(run)))
+    return rows
+
+
 def main(argv=None):
     chosen = C.names(sys.argv[1:] if argv is None else argv, CASES)
     card = C.require_card()
-    for case, ns, t_lo, t_hi in measure(chosen, torch.device("cuda", 0)):
+    dev = torch.device("cuda", 0)
+    for case, ns, t_lo, t_hi in measure(chosen, dev):
         mode, nstages = parse(case)
         print(f"{mode} n={nstages}: {ns / nstages:.2f} ns/poly/stage ({ns:.1f} ns/poly/rep) "
               f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms nb={C.NB_TIME} "
-              f"ops/poly/rep={ops(mode, nstages)} on {card}", flush=True)
+              f"ops/poly/rep={ops(mode, nstages)} needed_ops/poly/rep="
+              f"{needed_ops(mode, nstages)} on {card}", flush=True)
+    for case, eager_ms, graph_ms in measure_small(chosen, dev):
+        mode, nstages = parse(case)
+        print(f"{mode} n={nstages} nb={SMALL[0]} reps={SMALL[1]}: eager {eager_ms * 1e3:.2f} us, "
+              f"graph {graph_ms * 1e3:.2f} us per call on {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -94,11 +94,16 @@ Phases, each printing its own line; any failure exits nonzero:
      also at BP = 1, 2, 3 and 133 with 0, 1 and 3 repetitions, then at
      nb=8, 3 repetitions (timed; the rate probe at BP=256, 1 repetition
      with w laid out once, eager and in a CUDA-graph burst, beside one
-     torch._int_mm of the same products timed both ways); then the
+     torch._int_mm of the same products timed both ways; the lane probe's
+     full-13 also in a graph burst), the lane probe in every mode on an
+     edge sweep (nb = 1, 3, 133; 0, 1, 7, 14 and 26 stages; 0 and 3
+     repetitions; ptxas' registers and no spill checked at the build);
+     then the
      probes' own measurement at nb=256: the marginal ns per polynomial
      (block) per repetition of each, beside its bound (int8 MACs over the
      tensor-core peak, INT32 instructions over the integer issue peak, the
-     larger), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
+     larger; the lane probe also beside the work its function needs,
+     stream_prof2.needed_ops), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
      row-pair swap, the table read, 4 and 7 NTT lane stages) against their
      plain versions at the scripts' batches (16 or 32), at nb=133 and at
@@ -135,7 +140,8 @@ MUL_BATCHES = 3  # batches of B cleartext pairs on the multiply path
 GRID_NB = 64  # polynomials of the grid-kernel cases
 RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
-PROBE_NB, PROBE_REPS = 8, 3  # polynomials and repetitions of the probes' timed comparisons
+LANE_EDGE_NBS = (1, 3, 133)  # batches of the lane kernel's edge sweep
+LANE_EDGE_NSTAGES = (0, 1, 7, 14, 26)  # its stage counts: s mod 7 and s mod 13 apart
 #: (BP, reps) the wgmma rate kernel is held at: one 64-row tile, a whole
 #: 128-row tile, a whole and a half tile, 133 tiles (more CTAs than SMs)
 RATE_SHAPES = [(bp, r) for bp in (1, 2, 3, 133) for r in (0, 1, 3)]
@@ -178,7 +184,7 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
-    return ntt_registers(), ks_registers()
+    return ntt_registers(), ks_registers(), lane_registers()
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -231,6 +237,26 @@ def ks_registers() -> dict:
              f"{KS_INSTANCES}: {usage}")
     print("build: ks_head/ks_tail_kernel registers/spill stores/spill loads: "
           + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in sorted(usage.items())), flush=True)
+    return usage
+
+
+def lane_registers() -> dict:
+    """{mode: [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_stages.cu's lane_stages_kernel<mode>, from ptxas' report;
+    fails on a spill (the design holds a group in registers)."""
+    import re
+
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes import stream_prof2
+
+    usage = {}
+    for name, use in _build.ptxas_usage("lane_stages_kernel").items():
+        mode = re.search(r"lane_stages_kernelILi(\d)E", name)
+        usage[stream_prof2.MODES[int(mode.group(1))]] = list(use)
+    print("build: lane_stages_kernel registers/spill stores/spill loads: "
+          + ", ".join(f"{m} {'/'.join(map(str, v))}" for m, v in usage.items()), flush=True)
+    if sorted(usage) != sorted(stream_prof2.MODES) or any(v[1] or v[2] for v in usage.values()):
+        fail(f"lane_stages_kernel: one instance a mode and no spill expected, ptxas: {usage}")
     return usage
 
 
@@ -1437,6 +1463,7 @@ def phase_probes(card: str, dev, results: dict):
     from aloha_tpu_torch.probes import dma_bisect_stages as DS
     from aloha_tpu_torch.probes import dma_bisect_tblread as DT
 
+    PROBE_NB, R = stream_prof2.SMALL  # polynomials and repetitions of the timed comparisons
     # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition, timed REPS)
     cases = [("probe_ops", v, lambda x, r, v=v: op_probe.probe_ops(x, v, r),
               lambda x, r, v=v: op_probe.probe_ops_plain(x, v, r), op_probe.OPS[v],
@@ -1463,10 +1490,32 @@ def phase_probes(card: str, dev, results: dict):
     print(f"probes: {len(cases)} cases equal at nb={nb}, their lower REPS, in "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     del xm
-    x, R = common.resident_data(PROBE_NB, dev), PROBE_REPS
+    x = common.resident_data(PROBE_NB, dev)
     for kernel, label, run, plain, ops, _ in cases:
         check(results, card, kernel, f"{label} nb={PROBE_NB} reps={R}", lambda: run(x, R),
               lambda: plain(x, R), probe_work(PROBE_NB, R, ops), 1, 3)
+    graph_check(results, card, "probe_lane_stages", f"full-13 nb={PROBE_NB} reps={R}",
+                lambda: stream_prof2.lane_stages(x, "full", 13, R))
+    # beside the unchanged bound: the work the function needs (stream_prof2.needed_ops)
+    need_us, need_by = bound(probe_work(PROBE_NB, R, stream_prof2.needed_ops("full", 13)))
+    results["lane_needed_bound"] = {"ms": need_us / 1e3, "by": need_by, "ns": {}}
+    # the lane kernel's edge sweep: batches of one, three and 133 polynomials,
+    # stage counts that take s mod 7 and s mod 13 apart, 0 and R repetitions
+    t0, n_edge = time.perf_counter(), 0
+    for nb_e in LANE_EDGE_NBS:
+        xe = common.resident_data(nb_e, dev, seed=nb_e)
+        for m in stream_prof2.MODES:
+            for k in LANE_EDGE_NSTAGES:
+                for r in (0, R):
+                    label = f"{m}-{k} nb={nb_e} reps={r}"
+                    err = compare("probe_lane_stages", label,
+                                  lambda: stream_prof2.lane_stages(xe, m, k, r),
+                                  lambda: stream_prof2.lane_stages_plain(xe, m, k, r))
+                    results["probe_lane_stages"].append((label, err))
+                    n_edge += 1
+    print(f"probes: probe_lane_stages edge sweep, {n_edge} cases equal (nb {LANE_EDGE_NBS}, "
+          f"nstages {LANE_EDGE_NSTAGES}, reps 0 and {R}, every mode) in "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
     # the tensor-core and runtime-stage probes: (kernel, label, inputs(nb),
     # wrapper(*inputs, reps), plain(*inputs, reps), work(nb, reps), REPS)
@@ -1630,6 +1679,12 @@ def phase_probes(card: str, dev, results: dict):
             if kernel == "probe_mxu_parts":
                 tb = probe_mxu_parts.TABLE_BYTES[label]
                 extra += f" table_bytes={tb} ({per_ns(tb):.1f} GB/s through L2)"
+            if kernel == "probe_lane_stages":
+                need_ns = int32_ns(stream_prof2.needed_ops(*stream_prof2.parse(label)))
+                results["lane_needed_bound"]["ns"][label] = need_ns
+                extra += (f" needed_bound_ns={need_ns:.3f} (the function's work alone; "
+                          f"{per_ns(need_ns):.3f} of the marginal, the bound's "
+                          f"{per_ns(bound_ns):.3f})")
             print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
                   f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
                   f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME}{extra} on {card}", flush=True)
@@ -1648,7 +1703,7 @@ def phase_probes(card: str, dev, results: dict):
 
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
-              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut"}
+              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages"}
 
 
 def step2_order(kernels) -> list:
@@ -1680,7 +1735,7 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        registers, ks_registers_ = phase_build()
+        registers, ks_registers_, lane_registers_ = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1703,9 +1758,10 @@ def main():
         fail("a phase raised")
 
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
-    from aloha_tpu_torch.probes import dma_bisect, dma_bisect_stages
+    from aloha_tpu_torch.probes import dma_bisect, dma_bisect_stages, stream_prof2
 
     nb, n, k = BENCH["batch"], CFG.n, BENCH["chain_k"]
+    PROBE_NB, PROBE_REPS = stream_prof2.SMALL
     meta = {
         "ntt": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:721",
                 "aloha_tpu/ops/ntt_stream.py:814", f"fwd q0 (1, {nb}, {n}) bench"),
@@ -1775,6 +1831,11 @@ def main():
         if name == "ntt":
             entry["isa_shape"] = results["isa_shape"]
             entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}
+        if name == "probe_lane_stages":
+            entry["registers"] = lane_registers_
+            need = results["lane_needed_bound"]
+            entry["needed_bound_ms"], entry["needed_bound_by"] = need["ms"], need["by"]
+            entry["needed_bound_ns"] = need["ns"]
         if name in ("ks_head", "ks_tail"):
             entry["timing"] = results["ks_timing"][name]
             entry["registers"] = {k: v for k, v in ks_registers_.items()

@@ -613,16 +613,22 @@ def test_isa_aut_output_at_q_feeds_the_ntt_kernel(dev):
 
 
 # ------------------------------------------------------------------ probes
+#: the lane kernel's edge sweep: stage counts that take s mod 7 and s mod 13
+#: apart (0, one stage, one turn of the 7 distances, two, two turns of the 13 rows)
+LANE_EDGE_NSTAGES = (0, 1, 7, 14, 26)
 PROBE_CASES = ([("ops", v, None) for v in op_probe.VARIANTS] + [("fwd_reps", None, None)]
                + [("stage_modes", m, None) for m in stream_prof.MODES]
-               + [("lane_stages", m, k) for m in stream_prof2.MODES for k in stream_prof2.NSTAGES])
+               + [("lane_stages", m, k) for m in stream_prof2.MODES
+                  for k in stream_prof2.NSTAGES + LANE_EDGE_NSTAGES])
 
 
 @pytest.mark.parametrize("kind,mode,nstages", PROBE_CASES)
 def test_probe_kernels_match_plain(dev, kind, mode, nstages):
     """Each probe kernel (csrc/probe_ops.cu, csrc/probe_stages.cu) in every
     variant and mode equals its plain version at nb = 8, REPS 1 and 3, and
-    at the measured shape (nb = NB_TIME) at the module's lower REPS."""
+    at the measured shape (nb = NB_TIME) at the module's lower REPS; the
+    lane kernel also at nb = 1, 3 and 133 with 0 and 3 repetitions, at the
+    measured stage counts and LANE_EDGE_NSTAGES."""
     fn, plain, args, timed_reps = {
         "ops": (op_probe.probe_ops, op_probe.probe_ops_plain, (mode,), op_probe.REPS),
         "fwd_reps": (stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain, (), stream_prof3.REPS),
@@ -631,7 +637,10 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
         "lane_stages": (stream_prof2.lane_stages, stream_prof2.lane_stages_plain,
                         (mode, nstages), stream_prof2.REPS),
     }[kind]
-    for nb, reps in ((8, 1), (8, 3), (probe_common.NB_TIME, timed_reps[0])):
+    shapes = [(8, 1), (8, 3), (probe_common.NB_TIME, timed_reps[0])]
+    if kind == "lane_stages":
+        shapes += [(nb, reps) for nb in (1, 3, 133) for reps in (0, 3)]
+    for nb, reps in shapes:
         x = probe_common.resident_data(nb, dev)
         before = fn.launches
         got = fn(x, *args, reps)
