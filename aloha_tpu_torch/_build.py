@@ -149,11 +149,17 @@ def lib() -> ctypes.CDLL:
     return so
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(library: str) -> str:
+    return subprocess.run([cuda_tool("cuobjdump"), "--dump-sass", library],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+
+
 def sass_counts(kernel: str, opcodes) -> dict:
     """{opcode: count} of the SASS instructions of the built library's
-    functions whose name contains `kernel` (cuobjdump --dump-sass)."""
-    sass = subprocess.run([cuda_tool("cuobjdump"), "--dump-sass", str(build())],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+    functions whose name contains `kernel` (cuobjdump --dump-sass, run
+    once a library)."""
+    sass = _sass(str(build()))
     counts = dict.fromkeys(opcodes, 0)
     inside = False
     for line in sass.splitlines():

@@ -2,8 +2,11 @@
 
 A probe launches one CTA per polynomial (or block of rows) with its words
 in shared memory for the whole launch, and repeats a step REPS times on
-them; the lane-stage probe (`stream_prof2`) is the exception: 16 lanes of a
-warp hold each 128-word group in registers, and lanes trade words by
+them.  Two are exceptions that hold the words in registers: the
+building-block probe (`op_probe`), in `csrc/ntt.cu`'s owner map of forward
+pass 1 (16 words a thread, 512 threads a polynomial; only its roll, v6,
+goes through shared memory), and the lane-stage probe (`stream_prof2`),
+where 16 lanes of a warp hold each 128-word group and trade words by
 shuffles.  Where a TPU script chained K separate calls, the port repeats inside
 one launch instead: a call of this port's wrappers costs 20-100 µs of host
 time (the Python checks, `torch.empty_like`, `dispatch.stream_of`, ctypes
@@ -44,6 +47,7 @@ N, LOGN = CFG.n, CFG.logn
 Q, PSI = CFG.moduli[0], CFG.psi[0]
 #: polynomials of the timed launches: the batch of PERF.md's row 1 (the bench's)
 NB_TIME = 256
+SMALL = (8, 3)  # nb, reps of one timed call (chip_smoke.py times every probe at it)
 ITERS = 5
 BURST = 4
 GRAPH_CALLS = 16  # calls captured in one graph by `graph_ms`
@@ -85,6 +89,13 @@ def twiddle_row(s: int, device):
     w, ws = tables(device)
     idx = (1 << s) + (torch.arange(N, device=w.device) >> (LOGN - s))
     return w[idx], ws[idx]
+
+
+def table_bytes(rows, tables: int = 2) -> int:
+    """Bytes of `tables` of the compact (w, wshoup) tables a launch reads at
+    the given twiddle rows: row s holds the 2^s entries w[2^s .. 2^(s+1) - 1]
+    (`twiddle_row`)."""
+    return tables * 8 * sum(1 << s for s in set(rows))
 
 
 def check_reps(reps: int, name: str = "reps") -> None:
@@ -191,6 +202,18 @@ def graph_ms(fn) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / GRAPH_CALLS)
     return best
+
+
+def measure_small(run, names, device) -> list:
+    """[(name, eager ms, graph ms)] of one call run(x, name, reps) a name
+    on x = SMALL[0] resident polynomials, reps = SMALL[1]: `time_ms` and
+    `graph_ms` of the same call."""
+    x = resident_data(SMALL[0], device)
+    rows = []
+    for name in names:
+        call = lambda name=name: run(x, name, SMALL[1])  # noqa: E731
+        rows.append((name, time_ms(call), graph_ms(call)))
+    return rows
 
 
 def _two_points(run, points: tuple, units: int):

@@ -9,6 +9,24 @@ as the TPU script, nb = 256.  Each variant runs the u64 operation it
 stands for (the table in csrc/probe_ops.cu); v2, v4 and v10 - v14 measured
 the TPU's u32 plane split, which the port drops, and keep their names.
 
+The kernel holds each polynomial in `csrc/ntt.cu`'s register owner map of
+forward pass 1, 16 words a thread, loaded once and stored once; a
+repetition is the step on a thread's words in registers, as in a stage of
+`ntt.cu`.  Only v6 (the roll) goes through shared memory, as one of
+`ntt.cu`'s exchanges.  So the differences of the variants split the cost
+of a register-resident stage: v1 - v7 the Shoup product, v14 a CT stage
+with its twiddles, v0 - v14 a stage distance known only at run time, v6
+an exchange.
+
+Each variant is timed at nb = 256 (the marginal) and in one call at nb,
+reps = common.SMALL (chip_smoke.py's timed case) eager and in a CUDA-graph
+burst (`common.measure_small`).  Beyond the wrapper, `main` reads only
+`common`, the plain helpers and the C entry from the package, so run as a
+file (`python aloha_tpu_torch/probes/op_probe.py`) with an older tree
+first on PYTHONPATH it times that tree's kernel against this file's OPS;
+a tree whose `probes/common.py` lacks `measure_small` takes this tree's
+copy of that file.
+
 Bound on the H100: integer issue, `OPS[v]` INT32 instructions per
 polynomial per repetition over the card's integer issue rate; nothing
 moves over HBM per repetition.
@@ -27,6 +45,9 @@ from aloha_tpu_torch.probes import common as C
 VARIANTS = tuple(f"v{k}" for k in range(15))
 REPS = (50, 450)
 _STAGES = ("v0", "v13", "v14")  # one CT stage at distance 32
+# a CT butterfly on two registers of one thread with its twiddle in
+# registers: no pair or twiddle index
+_CT_REGS = C.CT_BUTTERFLY - C.INDEX
 # v12's t*q as shift-adds: q0's three set bits above bit 0 (csrc/probe_ops.cu)
 _Q0_SHIFTS = (32, 36, 59)
 # shifts by 32 and more touch only the high word; a shift and an add fuse
@@ -34,7 +55,7 @@ _SPARSE_MUL = 3
 
 #: INT32 instructions of one repetition on one polynomial (see common.ADD64)
 OPS = {
-    "v0": C.N // 2 * C.CT_BUTTERFLY,
+    "v0": C.N // 2 * _CT_REGS,
     "v1": C.N * C.SHOUP,
     "v2": C.N * C.MULHI64,
     "v3": C.N * C.MUL64LO,
@@ -47,9 +68,14 @@ OPS = {
     "v10": C.N * C.MULHI64,
     "v11": C.N * C.SHOUP,
     "v12": C.N * (C.SHOUP - C.MUL64LO + _SPARSE_MUL),
-    "v13": C.N // 2 * (C.CT_BUTTERFLY - C.MUL64LO + _SPARSE_MUL),
-    "v14": C.N // 2 * C.CT_BUTTERFLY,
+    "v13": C.N // 2 * (_CT_REGS - C.MUL64LO + _SPARSE_MUL),
+    "v14": C.N // 2 * _CT_REGS,
 }
+
+#: bytes of the tables one launch reads: row 5 of w and wshoup where the
+#: step takes both, of one where it takes one (v2, v10: wshoup; v3: w)
+TABLE_BYTES = {v: C.table_bytes((5,), 2 if v in _STAGES + ("v1", "v11", "v12") else
+                                1 if v in ("v2", "v3", "v10") else 0) for v in VARIANTS}
 
 
 def _stage_plain(x, sparse: bool):
@@ -135,10 +161,14 @@ def measure(variants, device):
 def main(argv=None):
     chosen = C.names(sys.argv[1:] if argv is None else argv, VARIANTS)
     card = C.require_card()
-    for v, ns, t_lo, t_hi in measure(chosen, torch.device("cuda", 0)):
+    dev = torch.device("cuda", 0)
+    for v, ns, t_lo, t_hi in measure(chosen, dev):
         print(f"{v}: {ns:.3f} ns/poly/rep (x13 = {ns * 13 / 1e3:.4f} us) "
               f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms nb={C.NB_TIME} "
               f"ops/poly/rep={OPS[v]} on {card}", flush=True)
+    for v, eager_ms, graph_ms in C.measure_small(probe_ops, chosen, dev):
+        print(f"{v} nb={C.SMALL[0]} reps={C.SMALL[1]}: eager {eager_ms * 1e3:.2f} us, "
+              f"graph {graph_ms * 1e3:.2f} us per call on {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -34,19 +34,18 @@ twiddle through the read-only path.  No shared memory, no barrier.
 
 Each mode runs at nstages 2 and 13, REPS 20 (the TPU script's) and 100
 at nb = 256 (the marginal), and one call at nb = 8, 3 repetitions
-(chip_smoke.py's timed case) eager (`common.time_ms`) and in a CUDA-graph
-burst (`common.graph_ms`).  Beyond the wrapper, `main` reads only
+(`common.SMALL`, chip_smoke.py's timed case) eager and in a CUDA-graph
+burst (`common.measure_small`).  Beyond the wrapper, `main` reads only
 `common`, the plain helpers and the C entry from the package, so run as a
 file (`python aloha_tpu_torch/probes/stream_prof2.py`) with an older tree
-first on PYTHONPATH it times that tree's kernel.
+first on PYTHONPATH it times that tree's kernel (a tree whose
+`probes/common.py` lacks `measure_small` takes this tree's copy).
 
 Bound on the H100: integer issue, `ops(mode, nstages)` INT32 instructions
-per polynomial per repetition: the yardstick every tree is timed against,
-which charges each pair its index arithmetic.  `needed_ops(mode, nstages)`
-counts only what the function needs once a pair is two registers of one
-lane, as in this kernel (no pair index; a twiddle index a word only above
-table row 6, one a group below; none for statT and nobfly): the least work,
-beside which the kernel's share of its bound is read.
+per polynomial per repetition: the work the function needs once a pair is
+two registers of one lane, as in this kernel (no pair index; a twiddle
+index a word only above table row 6, one a group below; none for statT and
+nobfly).
 """
 
 from __future__ import annotations
@@ -63,20 +62,10 @@ MODES = ("full", "statT", "statS", "nobfly")
 NSTAGES = (2, 13)
 CASES = tuple(f"{m}-{n}" for m in MODES for n in NSTAGES)
 REPS = (20, 100)
-SMALL = (8, 3)  # nb, reps of one timed call (chip_smoke.py times every probe at it)
-#: INT32 instructions of one lane stage on one pair: two twiddle indices and
-#: two Shoup products (one each for the top and bottom word); statT's two
-#: products are one (the same twiddle and operand)
-PAIR_OPS = {
-    "full": 2 * C.INDEX + C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
-    "statT": C.INDEX + C.CONDSUB + C.SHOUP + C.ADD64 + 2 * C.ADD64,
-    "statS": 2 * C.INDEX + C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
-    "nobfly": C.INDEX + 2,
-}
-
-#: INT32 instructions of one lane stage on one pair that the function needs
-#: when the pair is two registers of one lane: PAIR_OPS without the
-#: indices (`needed_ops` adds the twiddle indices); nobfly's two 32-bit adds
+#: INT32 instructions of one lane stage on one pair of two registers of one
+#: lane, without the twiddle indices (`ops` adds them): full's and statS's
+#: two Shoup products (one each for the top and bottom word), statT's one
+#: (the same twiddle and operand), nobfly's two 32-bit adds
 NEEDED_PAIR_OPS = {
     "full": C.CONDSUB + 2 * C.SHOUP + C.ADD64 + 2 * C.ADD64,
     "statT": C.CONDSUB + C.SHOUP + C.ADD64 + 2 * C.ADD64,
@@ -93,11 +82,6 @@ def parse(case: str):
 
 
 def ops(mode: str, nstages: int) -> int:
-    """INT32 instructions of one repetition on one polynomial."""
-    return nstages * C.N // 2 * PAIR_OPS[mode]
-
-
-def needed_ops(mode: str, nstages: int) -> int:
     """INT32 instructions of one repetition on one polynomial that the
     function needs: NEEDED_PAIR_OPS a pair, and for full and statS one
     twiddle index (C.INDEX) a 128-word group at table rows up to
@@ -107,6 +91,14 @@ def needed_ops(mode: str, nstages: int) -> int:
         total += sum(C.INDEX * (C.N // 128 if s % C.LOGN <= UNIFORM_ROWS else C.N)
                      for s in range(nstages))
     return total
+
+
+def table_bytes(mode: str, nstages: int) -> int:
+    """Bytes of the tables one launch reads: w and wshoup at the rows its
+    stages take (s mod 13; statT row 0; nobfly none)."""
+    if mode == "nobfly":
+        return 0
+    return C.table_bytes(0 if mode == "statT" else s % C.LOGN for s in range(nstages))
 
 
 def _check(mode: str, nstages: int) -> None:
@@ -163,17 +155,6 @@ def measure(cases, device):
     return rows
 
 
-def measure_small(cases, device):
-    """[(case, eager ms, graph ms)] of one call at nb, reps = SMALL."""
-    x = C.resident_data(SMALL[0], device)
-    rows = []
-    for case in cases:
-        mode, nstages = parse(case)
-        run = lambda m=mode, k=nstages: lane_stages(x, m, k, SMALL[1])  # noqa: E731
-        rows.append((case, C.time_ms(run), C.graph_ms(run)))
-    return rows
-
-
 def main(argv=None):
     chosen = C.names(sys.argv[1:] if argv is None else argv, CASES)
     card = C.require_card()
@@ -182,12 +163,13 @@ def main(argv=None):
         mode, nstages = parse(case)
         print(f"{mode} n={nstages}: {ns / nstages:.2f} ns/poly/stage ({ns:.1f} ns/poly/rep) "
               f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms nb={C.NB_TIME} "
-              f"ops/poly/rep={ops(mode, nstages)} needed_ops/poly/rep="
-              f"{needed_ops(mode, nstages)} on {card}", flush=True)
-    for case, eager_ms, graph_ms in measure_small(chosen, dev):
+              f"ops/poly/rep={ops(mode, nstages)} on {card}", flush=True)
+    run = lambda x, case, r: lane_stages(x, *parse(case), r)  # noqa: E731
+    for case, eager_ms, graph_ms in C.measure_small(run, chosen, dev):
         mode, nstages = parse(case)
-        print(f"{mode} n={nstages} nb={SMALL[0]} reps={SMALL[1]}: eager {eager_ms * 1e3:.2f} us, "
-              f"graph {graph_ms * 1e3:.2f} us per call on {card}", flush=True)
+        print(f"{mode} n={nstages} nb={C.SMALL[0]} reps={C.SMALL[1]}: eager "
+              f"{eager_ms * 1e3:.2f} us, graph {graph_ms * 1e3:.2f} us per call on {card}",
+              flush=True)
 
 
 if __name__ == "__main__":

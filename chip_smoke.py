@@ -12,7 +12,10 @@ Phases, each printing its own line; any failure exits nonzero:
      IGMMA and no IMMA; ptxas' registers and spill of each instance of
      csrc/ntt.cu's register-pass transform (45: one CTA a polynomial, and
      clusters of 2 and 4 CTAs) and of csrc/ks.cu's two kernels (one CTA a
-     polynomial at n = 1-8192; ks_tail also a cluster of 4 at 8192);
+     polynomial at n = 1-8192; ks_tail also a cluster of 4 at 8192); the
+     lane kernel's and csrc/probe_ops.cu's 15 variants' registers, no
+     spill, and in the SASS of probe_ops shared-memory accesses and
+     barriers in v6 alone;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -95,15 +98,15 @@ Phases, each printing its own line; any failure exits nonzero:
      nb=8, 3 repetitions (timed; the rate probe at BP=256, 1 repetition
      with w laid out once, eager and in a CUDA-graph burst, beside one
      torch._int_mm of the same products timed both ways; the lane probe's
-     full-13 also in a graph burst), the lane probe in every mode on an
-     edge sweep (nb = 1, 3, 133; 0, 1, 7, 14 and 26 stages; 0 and 3
-     repetitions; ptxas' registers and no spill checked at the build);
+     full-13 and probe_ops' v0 also in a graph burst), the lane probe in
+     every mode on an edge sweep (nb = 1, 3, 133; 0, 1, 7, 14 and 26
+     stages; 0 and 3 repetitions), probe_ops in every variant on one (nb =
+     1, 3, 133 and 264, past one wave at two CTAs an SM; 0-3 repetitions);
      then the
      probes' own measurement at nb=256: the marginal ns per polynomial
      (block) per repetition of each, beside its bound (int8 MACs over the
      tensor-core peak, INT32 instructions over the integer issue peak, the
-     larger; the lane probe also beside the work its function needs,
-     stream_prof2.needed_ops), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
+     larger), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
      row-pair swap, the table read, 4 and 7 NTT lane stages) against their
      plain versions at the scripts' batches (16 or 32), at nb=133 and at
@@ -142,6 +145,10 @@ RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_k
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
 LANE_EDGE_NBS = (1, 3, 133)  # batches of the lane kernel's edge sweep
 LANE_EDGE_NSTAGES = (0, 1, 7, 14, 26)  # its stage counts: s mod 7 and s mod 13 apart
+#: batches of probe_ops' edge sweep: 1, 3, more CTAs than SMs, past one
+#: wave at two CTAs an SM; each at 0-3 repetitions
+OPS_EDGE_NBS = (1, 3, 133, 264)
+OPS_EDGE_REPS = (0, 1, 2, 3)
 #: (BP, reps) the wgmma rate kernel is held at: one 64-row tile, a whole
 #: 128-row tile, a whole and a half tile, 133 tiles (more CTAs than SMs)
 RATE_SHAPES = [(bp, r) for bp in (1, 2, 3, 133) for r in (0, 1, 3)]
@@ -184,7 +191,7 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
-    return ntt_registers(), ks_registers(), lane_registers()
+    return ntt_registers(), ks_registers(), lane_registers(), ops_registers()
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -257,6 +264,42 @@ def lane_registers() -> dict:
           + ", ".join(f"{m} {'/'.join(map(str, v))}" for m, v in usage.items()), flush=True)
     if sorted(usage) != sorted(stream_prof2.MODES) or any(v[1] or v[2] for v in usage.values()):
         fail(f"lane_stages_kernel: one instance a mode and no spill expected, ptxas: {usage}")
+    return usage
+
+
+#: SASS opcodes counted in csrc/probe_ops.cu's kernels: products, selects,
+#: shared-memory stores and loads, barriers
+OPS_SASS = ("IMAD", "SEL", "STS", "LDS", "BAR")
+
+
+def ops_registers() -> dict:
+    """{variant: [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_ops.cu's probe_ops_kernel<V>, from ptxas' report; fails on
+    a spill (the design holds a polynomial in registers) and unless v6
+    alone holds shared-memory accesses and barriers in its SASS."""
+    import re
+
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes import op_probe
+
+    usage = {}
+    for name, use in _build.ptxas_usage("probe_ops_kernel").items():
+        v = int(re.search(r"probe_ops_kernelILi(\d+)E", name).group(1))
+        usage[op_probe.VARIANTS[v]] = list(use)
+    usage = dict(sorted(usage.items(), key=lambda kv: int(kv[0][1:])))
+    print("build: probe_ops_kernel registers/spill stores/spill loads: "
+          + ", ".join(f"{v} {'/'.join(map(str, u))}" for v, u in usage.items()), flush=True)
+    if sorted(usage) != sorted(op_probe.VARIANTS) or any(u[1] or u[2] for u in usage.values()):
+        fail(f"probe_ops_kernel: one instance a variant and no spill expected, ptxas: {usage}")
+    counts = {v: _build.sass_counts(f"probe_ops_kernelILi{v[1:]}E", OPS_SASS) for v in usage}
+    print("build: probe_ops_kernel SASS " + "/".join(OPS_SASS) + ": "
+          + ", ".join(f"{v} {'/'.join(str(c[o]) for o in OPS_SASS)}" for v, c in counts.items()),
+          flush=True)
+    for v, c in counts.items():
+        shared = [c["STS"], c["LDS"], c["BAR"]]
+        if (v == "v6") != all(shared) or (v != "v6" and any(shared)):
+            fail(f"probe_ops_kernel {v}: shared memory and barriers belong to v6 alone, "
+                 f"SASS {c}")
     return usage
 
 
@@ -1371,12 +1414,13 @@ def phase_isa(card: str, dev, results: dict):
     return launches
 
 
-def probe_work(nb: int, reps: int, ops_per_rep: int):
-    """One probe launch: nb polynomials read and written once, the (w, wshoup)
-    tables read once, `reps` steps of `ops_per_rep` INT32 instructions each."""
+def probe_work(nb: int, reps: int, ops_per_rep: int, table_bytes: int):
+    """One probe launch: nb polynomials read and written once, the
+    `table_bytes` of the (w, wshoup) tables its steps take read once,
+    `reps` steps of `ops_per_rep` INT32 instructions each."""
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 
-    return 2 * nb * CFG.n * 8 + 2 * CFG.n * 8, nb * reps * ops_per_rep, "int32"
+    return 2 * nb * CFG.n * 8 + table_bytes, nb * reps * ops_per_rep, "int32"
 
 
 def rate_work(bp: int, reps: int):
@@ -1463,27 +1507,29 @@ def phase_probes(card: str, dev, results: dict):
     from aloha_tpu_torch.probes import dma_bisect_stages as DS
     from aloha_tpu_torch.probes import dma_bisect_tblread as DT
 
-    PROBE_NB, R = stream_prof2.SMALL  # polynomials and repetitions of the timed comparisons
-    # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition, timed REPS)
+    PROBE_NB, R = common.SMALL  # polynomials and repetitions of the timed comparisons
+    all_rows = common.table_bytes(range(common.LOGN))  # a whole forward transform's twiddles
+    # (kernel, label, wrapper(x, reps), plain(x, reps), ops per repetition,
+    # timed REPS, table bytes a launch reads)
     cases = [("probe_ops", v, lambda x, r, v=v: op_probe.probe_ops(x, v, r),
               lambda x, r, v=v: op_probe.probe_ops_plain(x, v, r), op_probe.OPS[v],
-              op_probe.REPS) for v in op_probe.VARIANTS]
+              op_probe.REPS, op_probe.TABLE_BYTES[v]) for v in op_probe.VARIANTS]
     cases.append(("probe_fwd_reps", "fwd", stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain,
-                  stream_prof3.OPS, stream_prof3.REPS))
+                  stream_prof3.OPS, stream_prof3.REPS, all_rows))
     cases += [("probe_stage_modes", m, lambda x, r, m=m: stream_prof.stage_modes(x, m, r),
                lambda x, r, m=m: stream_prof.stage_modes_plain(x, m, r), stream_prof.OPS[m],
-               stream_prof.REPS) for m in stream_prof.MODES]
+               stream_prof.REPS, 0 if m == "rollsonly" else all_rows) for m in stream_prof.MODES]
     for case in stream_prof2.CASES:
         m, k = stream_prof2.parse(case)
         cases.append(("probe_lane_stages", case,
                       lambda x, r, m=m, k=k: stream_prof2.lane_stages(x, m, k, r),
                       lambda x, r, m=m, k=k: stream_prof2.lane_stages_plain(x, m, k, r),
-                      stream_prof2.ops(m, k), stream_prof2.REPS))
+                      stream_prof2.ops(m, k), stream_prof2.REPS, stream_prof2.table_bytes(m, k)))
     # the main path's shape (NB_TIME polynomials) at its lower REPS: compared,
     # not timed (the plain versions run a few hundred ms there)
     t0, nb = time.perf_counter(), common.NB_TIME
     xm = common.resident_data(nb, dev)
-    for kernel, label, run, plain, _, reps in cases:
+    for kernel, label, run, plain, _, reps, _ in cases:
         r = reps[0]
         err = compare(kernel, f"{label} nb={nb} reps={r}", lambda: run(xm, r), lambda: plain(xm, r))
         results.setdefault(kernel, []).append((f"{label} nb={nb} reps={r}", err))
@@ -1491,14 +1537,13 @@ def phase_probes(card: str, dev, results: dict):
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     del xm
     x = common.resident_data(PROBE_NB, dev)
-    for kernel, label, run, plain, ops, _ in cases:
+    for kernel, label, run, plain, ops, _, tables in cases:
         check(results, card, kernel, f"{label} nb={PROBE_NB} reps={R}", lambda: run(x, R),
-              lambda: plain(x, R), probe_work(PROBE_NB, R, ops), 1, 3)
+              lambda: plain(x, R), probe_work(PROBE_NB, R, ops, tables), 1, 3)
     graph_check(results, card, "probe_lane_stages", f"full-13 nb={PROBE_NB} reps={R}",
                 lambda: stream_prof2.lane_stages(x, "full", 13, R))
-    # beside the unchanged bound: the work the function needs (stream_prof2.needed_ops)
-    need_us, need_by = bound(probe_work(PROBE_NB, R, stream_prof2.needed_ops("full", 13)))
-    results["lane_needed_bound"] = {"ms": need_us / 1e3, "by": need_by, "ns": {}}
+    graph_check(results, card, "probe_ops", f"v0 nb={PROBE_NB} reps={R}",
+                lambda: op_probe.probe_ops(x, "v0", R))
     # the lane kernel's edge sweep: batches of one, three and 133 polynomials,
     # stage counts that take s mod 7 and s mod 13 apart, 0 and R repetitions
     t0, n_edge = time.perf_counter(), 0
@@ -1516,6 +1561,20 @@ def phase_probes(card: str, dev, results: dict):
     print(f"probes: probe_lane_stages edge sweep, {n_edge} cases equal (nb {LANE_EDGE_NBS}, "
           f"nstages {LANE_EDGE_NSTAGES}, reps 0 and {R}, every mode) in "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    # probe_ops' edge sweep: every variant at a few batches and repetitions
+    t0, n_edge = time.perf_counter(), 0
+    for nb_e in OPS_EDGE_NBS:
+        xe = common.resident_data(nb_e, dev, seed=nb_e)
+        for v in op_probe.VARIANTS:
+            for r in OPS_EDGE_REPS:
+                label = f"{v} nb={nb_e} reps={r}"
+                err = compare("probe_ops", label, lambda: op_probe.probe_ops(xe, v, r),
+                              lambda: op_probe.probe_ops_plain(xe, v, r))
+                results["probe_ops"].append((label, err))
+                n_edge += 1
+    print(f"probes: probe_ops edge sweep, {n_edge} cases equal (nb {OPS_EDGE_NBS}, reps "
+          f"{OPS_EDGE_REPS}, every variant) in {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
 
     # the tensor-core and runtime-stage probes: (kernel, label, inputs(nb),
     # wrapper(*inputs, reps), plain(*inputs, reps), work(nb, reps), REPS)
@@ -1679,12 +1738,6 @@ def phase_probes(card: str, dev, results: dict):
             if kernel == "probe_mxu_parts":
                 tb = probe_mxu_parts.TABLE_BYTES[label]
                 extra += f" table_bytes={tb} ({per_ns(tb):.1f} GB/s through L2)"
-            if kernel == "probe_lane_stages":
-                need_ns = int32_ns(stream_prof2.needed_ops(*stream_prof2.parse(label)))
-                results["lane_needed_bound"]["ns"][label] = need_ns
-                extra += (f" needed_bound_ns={need_ns:.3f} (the function's work alone; "
-                          f"{per_ns(need_ns):.3f} of the marginal, the bound's "
-                          f"{per_ns(bound_ns):.3f})")
             print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
                   f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
                   f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME}{extra} on {card}", flush=True)
@@ -1703,7 +1756,8 @@ def phase_probes(card: str, dev, results: dict):
 
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
-              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages"}
+              "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages",
+              "probe_ops"}
 
 
 def step2_order(kernels) -> list:
@@ -1735,7 +1789,7 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        registers, ks_registers_, lane_registers_ = phase_build()
+        registers, ks_registers_, lane_registers_, ops_registers_ = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1758,10 +1812,10 @@ def main():
         fail("a phase raised")
 
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
-    from aloha_tpu_torch.probes import dma_bisect, dma_bisect_stages, stream_prof2
+    from aloha_tpu_torch.probes import common, dma_bisect, dma_bisect_stages
 
     nb, n, k = BENCH["batch"], CFG.n, BENCH["chain_k"]
-    PROBE_NB, PROBE_REPS = stream_prof2.SMALL
+    PROBE_NB, PROBE_REPS = common.SMALL
     meta = {
         "ntt": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_stream.py:721",
                 "aloha_tpu/ops/ntt_stream.py:814", f"fwd q0 (1, {nb}, {n}) bench"),
@@ -1833,9 +1887,8 @@ def main():
             entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}
         if name == "probe_lane_stages":
             entry["registers"] = lane_registers_
-            need = results["lane_needed_bound"]
-            entry["needed_bound_ms"], entry["needed_bound_by"] = need["ms"], need["by"]
-            entry["needed_bound_ns"] = need["ns"]
+        if name == "probe_ops":
+            entry["registers"] = ops_registers_
         if name in ("ks_head", "ks_tail"):
             entry["timing"] = results["ks_timing"][name]
             entry["registers"] = {k: v for k, v in ks_registers_.items()

@@ -628,7 +628,9 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
     variant and mode equals its plain version at nb = 8, REPS 1 and 3, and
     at the measured shape (nb = NB_TIME) at the module's lower REPS; the
     lane kernel also at nb = 1, 3 and 133 with 0 and 3 repetitions, at the
-    measured stage counts and LANE_EDGE_NSTAGES."""
+    measured stage counts and LANE_EDGE_NSTAGES; the building-block kernel
+    also at nb = 1, 3, 133 and 264 (past one wave at two CTAs an SM) with
+    0, 1 and 2 repetitions."""
     fn, plain, args, timed_reps = {
         "ops": (op_probe.probe_ops, op_probe.probe_ops_plain, (mode,), op_probe.REPS),
         "fwd_reps": (stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain, (), stream_prof3.REPS),
@@ -640,6 +642,8 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
     shapes = [(8, 1), (8, 3), (probe_common.NB_TIME, timed_reps[0])]
     if kind == "lane_stages":
         shapes += [(nb, reps) for nb in (1, 3, 133) for reps in (0, 3)]
+    if kind == "ops":
+        shapes += [(nb, reps) for nb in (1, 3, 133, 264) for reps in (0, 1, 2)]
     for nb, reps in shapes:
         x = probe_common.resident_data(nb, dev)
         before = fn.launches

@@ -14,7 +14,7 @@ the only CPU check of the kernel's index logic, and must equal
 checks that no pair and no shuffle leaves its group (and so its warp), that
 every pair is two registers of one lane at the stage's distance, and that a
 uniform row's one twiddle is every word's, and it counts the twiddle
-indices the schedule needs, which `stream_prof2.needed_ops` charges.  The
+indices the schedule needs, which `stream_prof2.ops` charges.  The
 kernel's constants are read from the source.
 """
 
@@ -259,13 +259,32 @@ def test_launch_covers_each_word_once(nb):
 
 @pytest.mark.parametrize("case", S.CASES)
 def test_needed_ops_count_the_schedules_work(case):
-    """`stream_prof2.needed_ops`, the least work beside the unchanged bound,
-    is the model's pairs at NEEDED_PAIR_OPS each plus its twiddle indices
-    at C.INDEX each, and never more than `ops`."""
+    """`stream_prof2.ops`, the bound's count, is the work the schedule
+    needs: the model's pairs at NEEDED_PAIR_OPS each plus its twiddle
+    indices at C.INDEX each."""
     mode, nstages = S.parse(case)
     m = LaneModel(1)
     m.run(C.resident_data(1, "cpu").numpy().view(np.uint64), mode, nstages, 1, tables())
     assert m.pairs == nstages * C.N // 2
-    assert S.needed_ops(mode, nstages) == (m.pairs * S.NEEDED_PAIR_OPS[mode]
-                                           + m.twiddle_indices * C.INDEX)
-    assert S.needed_ops(mode, nstages) <= S.ops(mode, nstages)
+    assert S.ops(mode, nstages) == (m.pairs * S.NEEDED_PAIR_OPS[mode]
+                                    + m.twiddle_indices * C.INDEX)
+
+
+@pytest.mark.parametrize("case", S.CASES)
+def test_table_bytes_are_the_rows_the_stages_read(case):
+    """`stream_prof2.table_bytes`, the table bytes in chip_smoke.py's
+    bound, counts just the rows whose twiddles reach a word: a row is read
+    where poisoning its entries in both tables changes the model's words."""
+    mode, nstages = S.parse(case)
+    x = C.resident_data(1, "cpu", seed=3).numpy().view(np.uint64)
+    w, ws, q = tables()
+    want = LaneModel(1).run(x, mode, nstages, 1, (w, ws, q))
+    rng = np.random.default_rng(nstages)
+    read = []
+    for row in range(C.LOGN):
+        pw, pws = w.copy(), ws.copy()
+        for t in (pw, pws):
+            t[1 << row:2 << row] = rng.integers(0, 2**63, size=1 << row, dtype=np.uint64)
+        if not np.array_equal(LaneModel(1).run(x, mode, nstages, 1, (pw, pws, q)), want):
+            read.append(row)
+    assert S.table_bytes(mode, nstages) == C.table_bytes(read)
