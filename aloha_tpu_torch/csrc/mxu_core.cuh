@@ -1,67 +1,54 @@
-// Device code of the 4-step int8 tensor-core NTT, shared by csrc/ntt_mxu.cu
-// (the transform) and csrc/probe_mxu.cu (its cost probes).
+// Device code of the 4-step int8 tensor-core NTT on warpgroup products
+// (wgmma), shared by csrc/ntt_mxu.cu (the transform) and csrc/probe_mxu.cu
+// (its parts probe): the table ring, the digit splits, the product step
+// and the loop of transforms.
 //
-// The arithmetic, the table layouts and the bounds are explained in
-// csrc/ntt_mxu.cu and aloha_tpu_torch/ops/ntt_mxu.py.  The row and lane
-// products take a compile-time epilogue: FOLD, the transform's own (fold
-// the 8 accumulators into a residue, then `finish`), or XOR, the products-
-// only probe's (tools/probe_mxu_parts.py:46-69): e = e_0 ^ ... ^ e_7, stored
-// as u32(e) | u32(e + 1) << 32 after the row product and as
-// u32(e) | u32(e ^ 3) << 32 after the lane product.
+// The arithmetic, the layouts and the bounds are explained in
+// csrc/ntt_mxu.cu and aloha_tpu_torch/ops/ntt_mxu.py.  The product step
+// takes a compile-time epilogue: FOLD, the transform's own (fold59 a digit
+// at a time, then `finish`), or XOR, the products-only probe's
+// (tools/probe_mxu_parts.py:46-69): x = e_0 ^ ... ^ e_7, stored as
+// u32(x) | u32(x + 1) << 32 after the row product and as
+// u32(x) | u32(x ^ 3) << 32 after the lane product.
 #pragma once
 
 #include "modarith.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 typedef unsigned int u32;
 
 constexpr int LANES = 128;
-constexpr int NDIG = 8;              // base-256 digits of a u64
-constexpr int MXU_THREADS = 256;
-constexpr int NWARPS = MXU_THREADS / 32;
-constexpr int PAD = 16;              // bytes of padding per digit row
-constexpr int ROW_NT = 2;            // 8-lane n-tiles per warp block, row product
-constexpr int LANE_MT = 2;           // 16-row m-tiles per warp block, lane product
-constexpr int LANE_BITS = 24;        // accumulator bias exponent at K = 1024
+constexpr int NDIG = 8;                        // base-256 digits of a u64
+constexpr int LANE_BITS = 24;                  // accumulator bias exponent at K = 1024
 constexpr u64 MASK59 = (1ull << 59) - 1;
+constexpr int TF_WGS = 2;                      // warpgroups a CTA
+constexpr int TF_THREADS = TF_WGS * 128;
+constexpr int TF_WARPS = TF_THREADS / 32;      // arrivals on an `empty` mbarrier
+constexpr int SLOTS = 4;                       // table ring slots
+constexpr unsigned TILE = 16384;               // bytes of a slot and of a stage in the stream
+constexpr unsigned KBLOCK = LANES * LANES;     // a 128-row k-block of 128 bytes
+constexpr int LANE_STAGES = NDIG * NDIG;       // (j, plane kk)
+constexpr int MAX_DEVICES = 64;
 
 enum Epilogue { FOLD = 0, XOR = 1 };
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], u32 a0, u32 a1, u32 a2, u32 a3, u32 b0,
-                                       u32 b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+// bias_bits(8R) of the row product, bias_bits(1024) of the lane product
+template <int R, bool ROWS>
+constexpr int BIAS_BITS = ROWS ? (R == 64 ? 23 : 22) : LANE_BITS;
 
-// V = sum_j 2^(8j) (e_j + 2^b) + c  (|e_j| <= 2^b, c < q, so V < 2^82)
-// -> W == V (mod q) with W = (V mod 2^59) + 20q - (V >> 59) delta < 20q + 2^59
-// (the host checks (V >> 59) delta <= 20q for the modulus).  WIDE takes any
-// int32 e_j (V < 2^89, so the sum of the low five terms can carry out of 64
-// bits) and returns the same formula mod 2^64: the integer-only probe's
-// accumulators are not bounded by 2^b.
-template <bool WIDE = false>
-__device__ __forceinline__ u64 fold59(const int (&e)[NDIG], int b, u64 c, u64 q, u64 delta) {
-  u64 u[NDIG];
-#pragma unroll
-  for (int j = 0; j < NDIG; ++j) u[j] = (u64)((u32)e[j] + (1u << b));
-  u64 lo, carry = 0;
-  if constexpr (WIDE) {
-    const u64 lo4 = u[0] + (u[1] << 8) + (u[2] << 16) + (u[3] << 24);  // < 2^57
-    lo = lo4 + (u[4] << 32);
-    carry = lo < lo4;
-  } else {
-    lo = u[0] + (u[1] << 8) + (u[2] << 16) + (u[3] << 24) + (u[4] << 32);  // < 2^58
-  }
-  const u64 hi = u[5] + (u[6] << 8) + (u[7] << 16);  // < 2^42 (2^49 WIDE), weight 2^40
-  const u64 v1 = lo + (hi << 40);
-  const u64 v2 = v1 + c;
-  const u64 vhi = (hi >> 24) + carry + (v1 < lo) + (v2 < v1);
-  const u64 a = (vhi << 5) | (v2 >> 59);
-  return (v2 & MASK59) + 20 * q - a * delta;
+// The tail of fold59.  With the digits of V = sum_j 2^(8j) (e_j + 2^b) + c
+// (|e_j| <= 2^b, c < q, so V < 2^82) summed as lo = sum_{j<5} 2^(8j) u_j
+// and hi = sum_{j>=5} 2^(8(j-5)) u_j, u_j = e_j + 2^b: W == V (mod q) with
+// W = (V mod 2^59) + 20q - (V >> 59) delta < 20q + 2^59 (the host checks
+// (V >> 59) delta <= 20q for the modulus).  The same formula mod 2^64 for
+// the parts probe's fake accumulators, which are not bounded by 2^b: there
+// lo can pass 2^64, and each carry is added to hi as 2^24 (2^64 = 2^24 2^40).
+__device__ __forceinline__ u64 fold59(u64 lo, u64 hi, u64 c, u64 q, u64 delta) {
+  const u64 v1 = lo + (hi << 40), v2 = v1 + c;
+  const u64 vhi = (hi >> 24) + (v1 < lo) + (v2 < v1);
+  return (v2 & MASK59) + 20 * q - ((vhi << 5) | (v2 >> 59)) * delta;
 }
 
 // W < 2^64 from fold59 -> [0, q): (W mod 2^59) + q - (W >> 59) delta < 2q.
@@ -79,184 +66,251 @@ __device__ __forceinline__ u64 finish(u64 w, int idx, const u64* __restrict__ tw
   return fin ? fold_final(w, q, delta) : w;
 }
 
-// The XOR epilogue's e_0 ^ ... ^ e_7 (as u32, so that e + 1 wraps) and its word.
-__device__ __forceinline__ u32 xor_fold(const int (&e)[NDIG]) {
-  u32 x = (u32)e[0];
-#pragma unroll
-  for (int j = 1; j < NDIG; ++j) x ^= (u32)e[j];
-  return x;
-}
-
 __device__ __forceinline__ u64 pack32(u32 lo, u32 hi) { return (u64)lo | ((u64)hi << 32); }
 
-// Digit planes for the row product (data as the B operand, K-contiguous per
-// column): dig[(kk * 128 + l) * (R + PAD) + r] = digit kk of sh[r][l].
-__device__ __forceinline__ void split_rows(const u64* sh, unsigned char* dig, int R) {
-  const int SB = R + PAD;
-  for (int idx = threadIdx.x; idx < (R / 4) * LANES; idx += MXU_THREADS) {
-    const int l = idx % LANES, r0 = (idx / LANES) * 4;
-    u64 v[4];
+// Where a product step's accumulator o of this thread lands: d[4 blk + 2h
+// + e] of lane 4 gq + t in warp w of warpgroup wg holds row (lane) m = 64 wg
+// + 16 w + gq + 8h, column i = 8 blk + 2t + e (csrc/wgmma_s8.cuh): word
+// i 128 + m.
+struct Places {
+  int m0, t;
+  __device__ __forceinline__ explicit Places(int wg)
+      : m0(wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2)),
+        t(threadIdx.x & 3) {}
+  __device__ __forceinline__ int lane(int o) const { return m0 + 8 * ((o >> 1) & 1); }
+  __device__ __forceinline__ int row(int o) const { return 8 * (o >> 2) + 2 * t + (o & 1); }
+};
+
+template <int R>
+struct Ring {
+  static constexpr int ROW_STAGES = NDIG * R / 32;  // (j, pair of k-blocks)
+  static constexpr int STAGES = ROW_STAGES + LANE_STAGES;
+  static constexpr unsigned ROW_BYTES = 2 * R * LANES;
+  static constexpr unsigned PLANES = NDIG * R * LANES;
+  // planes, ring, words, mbarriers, and 1 KiB to align the swizzle atoms
+  static constexpr size_t SMEM = SW128_ATOM + PLANES + SLOTS * TILE + sizeof(u64) * R * LANES +
+                                 sizeof(unsigned long long) * 2 * SLOTS;
+  static_assert(SMEM <= 232448, "one CTA's shared memory");
+
+  unsigned char* slots;
+  unsigned long long* full;    // per slot: the stage's bytes have landed
+  unsigned long long* empty;   // per slot: every warp is done with it
+  const signed char* stream;   // this modulus's stages, TILE bytes apart
+  int row_first;               // first row stage (0 forward, LANE_STAGES inverse)
+  int total;                   // stages of the launch: k x STAGES
+  bool leader;
+
+  // stage g of the launch into slot g mod SLOTS (when the leader)
+  __device__ __forceinline__ void load(int g) const {
+    const int s = g % STAGES, slot = g % SLOTS;
+    const bool row = s >= row_first && s < row_first + ROW_STAGES;
+    bulk_load(slots + slot * TILE, stream + (size_t)s * TILE, row ? ROW_BYTES : TILE,
+              full + slot, leader);
+  }
+
+  // this warp is done with stage g; the leader refills its slot once all are
+  __device__ __forceinline__ void release(int g) const {
+    const int slot = g % SLOTS;
+    mbar_arrive(empty + slot, (threadIdx.x & 31) == 0);
+    if (g + SLOTS < total) {
+      mbar_wait_if(empty + slot, (g / SLOTS) & 1, leader);
+      load(g + SLOTS);
+    }
+  }
+};
+
+// byte i of d[k] = byte k of x[i] (a 4 x 4 byte transpose)
+__device__ __forceinline__ void transpose4(const u32 (&x)[4], u32* d) {
+  const u32 a = __byte_perm(x[0], x[1], 0x5140), b = __byte_perm(x[0], x[1], 0x7362);
+  const u32 c = __byte_perm(x[2], x[3], 0x5140), e = __byte_perm(x[2], x[3], 0x7362);
+  d[0] = __byte_perm(a, c, 0x5410);
+  d[1] = __byte_perm(a, c, 0x7632);
+  d[2] = __byte_perm(b, e, 0x5410);
+  d[3] = __byte_perm(b, e, 0x7632);
+}
+
+// byte i of d[kk] = biased digit kk of v[i]
+__device__ __forceinline__ void digits4(const u64 (&v)[4], u32 (&d)[NDIG]) {
+  u32 lo[4], hi[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = sh[(r0 + i) * LANES + l] ^ 0x8080808080808080ull;
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = (u32)v[i] ^ 0x80808080u;
+    hi[i] = (u32)(v[i] >> 32) ^ 0x80808080u;
+  }
+  transpose4(lo, d);
+  transpose4(hi, d + 4);
+}
+
+// The rows product's A: k-block kb (128 rows of 128 bytes) holds, in row
+// l, bytes 128 kb .. 128 kb + 127 of k = kk R + r.  A thread takes lane l
+// and rows r0 .. r0 + 15, so each plane's 16 bytes are one swizzled chunk.
+template <int R>
+__device__ __forceinline__ void split_rows_sw(const u64* sh, unsigned char* planes) {
+  for (int it = threadIdx.x; it < (R / 16) * LANES; it += TF_THREADS) {
+    const int l = it % LANES, r0 = (it / LANES) * 16;
+    u32 d[4][NDIG];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      u64 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = sh[(r0 + 4 * g + i) * LANES + l];
+      digits4(v, d[g]);
+    }
 #pragma unroll
     for (int kk = 0; kk < NDIG; ++kk) {
-      u32 w = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w |= (u32)((v[i] >> (8 * kk)) & 0xff) << (8 * i);
-      *(u32*)(dig + (kk * LANES + l) * SB + r0) = w;
+      const int k = kk * R + r0;
+      *(uint4*)(planes + (k >> 7) * KBLOCK + l * LANES + ((((k & 127) >> 4) ^ (l & 7)) << 4)) =
+          make_uint4(d[0][kk], d[1][kk], d[2][kk], d[3][kk]);
     }
   }
 }
 
-// Digit planes for the lane product (data as the A operand, K-contiguous per
-// row): dig[r * (1024 + PAD) + kk * 128 + l] = digit kk of sh[r][l].
-__device__ __forceinline__ void split_lanes(const u64* sh, unsigned char* dig, int R) {
-  const int SA = NDIG * LANES + PAD;
-  for (int idx = threadIdx.x; idx < R * (LANES / 4); idx += MXU_THREADS) {
-    const int r = idx / (LANES / 4), l0 = (idx % (LANES / 4)) * 4;
-    u64 v[4];
+// The lanes product's B: k-block kk (R x 128 bytes) holds row r, byte l of
+// k = kk 128 + l.  A thread takes row r and lanes l0 .. l0 + 3.
+template <int R>
+__device__ __forceinline__ void split_lanes_sw(const u64* sh, unsigned char* planes) {
+  for (int it = threadIdx.x; it < R * (LANES / 4); it += TF_THREADS) {
+    const int r = it / (LANES / 4), l0 = (it % (LANES / 4)) * 4;
+    const ulonglong2 a = *(const ulonglong2*)(sh + r * LANES + l0);
+    const ulonglong2 b = *(const ulonglong2*)(sh + r * LANES + l0 + 2);
+    const u64 v[4] = {a.x, a.y, b.x, b.y};
+    u32 d[NDIG];
+    digits4(v, d);
+    unsigned char* row = planes + r * LANES + ((((l0 >> 4) ^ (r & 7))) << 4) + (l0 & 15);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = sh[r * LANES + l0 + i] ^ 0x8080808080808080ull;
-#pragma unroll
-    for (int kk = 0; kk < NDIG; ++kk) {
-      u32 w = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w |= (u32)((v[i] >> (8 * kk)) & 0xff) << (8 * i);
-      *(u32*)(dig + r * SA + kk * LANES + l0) = w;
-    }
+    for (int kk = 0; kk < NDIG; ++kk) *(u32*)(row + kk * (R * LANES)) = d[kk];
   }
 }
 
-// Row product: out[i][l] = fold(sum_k A_j[i][k] S[k][l]), K = 8R, k = kk R + r.
-// af: A_j in fragment order [j][R/16][8R/32][lane] of uint4 (the m16n8k32
-// A registers a0..a3 of each lane).  One warp block: 16 rows x 8 ROW_NT lanes.
-template <bool MID, int EPI = FOLD>
-__device__ __forceinline__ void row_step(const unsigned char* dig, u64* sh, int R,
-                                         const uint4* __restrict__ af,
-                                         const u64* __restrict__ crow,
-                                         const u64* __restrict__ tw,
-                                         const u64* __restrict__ tws, bool fin, u64 q,
-                                         u64 delta) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int SB = R + PAD, KS = NDIG * R / 32, mtiles = R / 16;
-  constexpr int ngroups = LANES / (8 * ROW_NT);
-  const int b = __ffs(NDIG * R) - 1 + 14;
-  for (int blk = warp; blk < mtiles * ngroups; blk += NWARPS) {
-    const int mt = blk / ngroups, ng = blk % ngroups;
-    int acc[NDIG][ROW_NT][4];
+// One product step (ROWS: the rows, else the lanes) over its table stages,
+// starting at stage g of the launch.  FOLD: the folded words go to sh,
+// through finish<MID>; cvec: crow (ROWS) or ccol.  XOR: the words of the
+// accumulators' xor go to sh; cvec, tw and tws are not read.
+template <int R, bool ROWS, bool MID, int EPI = FOLD>
+__device__ __forceinline__ void product_step(unsigned planes, u64* sh, const Ring<R>& ring,
+                                             int& g, const u64* __restrict__ cvec,
+                                             const u64* __restrict__ tw,
+                                             const u64* __restrict__ tws, bool fin, u64 q,
+                                             u64 delta, int wg) {
+  constexpr int NACC = R / 2;                   // accumulators of m64nRk32
+  constexpr int PARTS = ROWS ? R / 32 : NDIG;   // stages per digit j
+  constexpr int KB = ROWS ? 2 : 1;              // k-blocks per stage
+  constexpr unsigned BLK = R * LANES;           // a k-block of the R-row operand
+  constexpr int b = BIAS_BITS<R, ROWS>;
+  static_assert(ROWS ? NDIG * R << 14 == 1 << b : true, "row bias");
+  const unsigned wrow = wg * 64 * LANES;        // the warpgroup's 64 rows of a 128-row operand
+  u64 lo[NACC], hi[NACC];
+  u32 x[NACC];  // XOR: e_0 ^ ... ^ e_j
+  int acc[NACC];
 #pragma unroll
-    for (int j = 0; j < NDIG; ++j)
+  for (int o = 0; o < NACC; ++o) {
+    lo[o] = hi[o] = 0;
+    x[o] = 0;
+    acc[o] = 0;  // never read: the first product of each j does not accumulate
+  }
+  int pend = -1;  // a stage whose products may still run, its slot not yet released
+#pragma unroll 1
+  for (int j = 0; j < NDIG; ++j) {
+#pragma unroll 1
+    for (int p = 0; p < PARTS; ++p, ++g) {
+      const int slot = g % SLOTS;
+      mbar_wait(ring.full + slot, (g / SLOTS) & 1);
+      const unsigned tile = smem_u32(ring.slots + slot * TILE);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < ROW_NT; ++nt)
+      for (int kb = 0; kb < KB; ++kb)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][nt][c] = 0;
-    for (int ks = 0; ks < KS; ++ks) {
-      const int kk = (ks * 32) / R, r0 = ks * 32 - kk * R;  // 32 | R: one plane per step
-      u32 bf[ROW_NT][2];
-#pragma unroll
-      for (int nt = 0; nt < ROW_NT; ++nt) {
-        const unsigned char* p =
-            dig + (kk * LANES + (ng * ROW_NT + nt) * 8 + g) * SB + r0 + 4 * t;
-        bf[nt][0] = *(const u32*)p;
-        bf[nt][1] = *(const u32*)(p + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NDIG; ++j) {
-        const uint4 a = __ldg(af + ((j * mtiles + mt) * KS + ks) * 32 + lane);
-#pragma unroll
-        for (int nt = 0; nt < ROW_NT; ++nt)
-          mma_s8(acc[j][nt], a.x, a.y, a.z, a.w, bf[nt][0], bf[nt][1]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < ROW_NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = mt * 16 + g + 8 * h, l = (ng * ROW_NT + nt) * 8 + 2 * t + c;
-          int e[NDIG];
-#pragma unroll
-          for (int j = 0; j < NDIG; ++j) e[j] = acc[j][nt][2 * h + c];
-          const int idx = i * LANES + l;
-          if constexpr (EPI == XOR) {
-            const u32 x = xor_fold(e);
-            sh[idx] = pack32(x, x + 1);
-          } else {
-            sh[idx] = finish<MID>(fold59(e, b, crow[i], q, delta), idx, tw, tws, fin, q, delta);
-          }
+        for (int kc = 0; kc < 4; ++kc) {
+          const unsigned a = ROWS ? planes + (p * KB + kb) * KBLOCK + wrow + 32 * kc
+                                  : tile + wrow + 32 * kc;
+          const unsigned bb = ROWS ? tile + kb * BLK + 32 * kc : planes + p * BLK + 32 * kc;
+          wgmma_m64k32_s8(acc, sw128_desc(a), sw128_desc(bb), p | kb | kc);
         }
-  }
-}
-
-// Lane product: out[i][l] = fold(sum_k S'[i][k] T_j[k][l]), K = 1024, k = kk 128 + l'.
-// tf: T_j in fragment order [j][128/8][1024/32][lane] of uint2 (the m16n8k32
-// B registers b0, b1 of each lane).  One warp block: 16 LANE_MT rows x 8 lanes.
-template <bool MID, int EPI = FOLD>
-__device__ __forceinline__ void lane_step(const unsigned char* dig, u64* sh, int R,
-                                          const uint2* __restrict__ tf,
-                                          const u64* __restrict__ ccol,
-                                          const u64* __restrict__ tw,
-                                          const u64* __restrict__ tws, bool fin, u64 q,
-                                          u64 delta) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  constexpr int SA = NDIG * LANES + PAD, KS = NDIG * LANES / 32, ntiles = LANES / 8;
-  const int mgroups = R / (16 * LANE_MT);
-  for (int blk = warp; blk < mgroups * ntiles; blk += NWARPS) {
-    const int mg = blk / ntiles, nt = blk % ntiles;
-    int acc[NDIG][LANE_MT][4];
-#pragma unroll
-    for (int j = 0; j < NDIG; ++j)
-#pragma unroll
-      for (int mi = 0; mi < LANE_MT; ++mi)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][mi][c] = 0;
-    for (int ks = 0; ks < KS; ++ks) {
-      u32 a[LANE_MT][4];
-#pragma unroll
-      for (int mi = 0; mi < LANE_MT; ++mi) {
-        const unsigned char* p = dig + ((mg * LANE_MT + mi) * 16 + g) * SA + ks * 32 + 4 * t;
-        a[mi][0] = *(const u32*)p;
-        a[mi][1] = *(const u32*)(p + 8 * SA);
-        a[mi][2] = *(const u32*)(p + 16);
-        a[mi][3] = *(const u32*)(p + 8 * SA + 16);
+      wgmma_commit();
+      if (p < PARTS - 1) {
+        wgmma_wait<1>();
+        if (pend >= 0) ring.release(pend);
+        pend = g;
+        continue;
       }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (pend >= 0) ring.release(pend);
+      ring.release(g);
+      pend = -1;
+      if constexpr (EPI == XOR) {
 #pragma unroll
-      for (int j = 0; j < NDIG; ++j) {
-        const uint2 bb = __ldg(tf + ((j * ntiles + nt) * KS + ks) * 32 + lane);
+        for (int o = 0; o < NACC; ++o) x[o] ^= (u32)acc[o];
+      } else {
+        // fold59's two halves, digit j at a time
+        const u32 bias = 1u << b;
+        if (j < 5) {
 #pragma unroll
-        for (int mi = 0; mi < LANE_MT; ++mi)
-          mma_s8(acc[j][mi], a[mi][0], a[mi][1], a[mi][2], a[mi][3], bb.x, bb.y);
+          for (int o = 0; o < NACC; ++o) lo[o] += (u64)((u32)acc[o] + bias) << (8 * j);
+        } else {
+#pragma unroll
+          for (int o = 0; o < NACC; ++o) hi[o] += (u64)((u32)acc[o] + bias) << (8 * (j - 5));
+        }
       }
     }
+  }
+  const Places at(wg);
 #pragma unroll
-    for (int mi = 0; mi < LANE_MT; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = (mg * LANE_MT + mi) * 16 + g + 8 * h, l = nt * 8 + 2 * t + c;
-          int e[NDIG];
-#pragma unroll
-          for (int j = 0; j < NDIG; ++j) e[j] = acc[j][mi][2 * h + c];
-          const int idx = i * LANES + l;
-          if constexpr (EPI == XOR) {
-            const u32 x = xor_fold(e);
-            sh[idx] = pack32(x, x ^ 3);
-          } else {
-            sh[idx] = finish<MID>(fold59(e, LANE_BITS, ccol[l], q, delta), idx, tw, tws, fin, q,
-                                  delta);
-          }
-        }
+  for (int o = 0; o < NACC; ++o) {
+    const int m = at.lane(o), i = at.row(o);
+    const int idx = i * LANES + m;
+    if constexpr (EPI == XOR) {
+      sh[idx] = pack32(x[o], ROWS ? x[o] + 1 : x[o] ^ 3);
+    } else {
+      const u64 w = fold59(lo[o], hi[o], ROWS ? cvec[i] : cvec[m], q, delta);
+      sh[idx] = finish<MID>(w, idx, tw, tws, fin, q, delta);
+    }
   }
 }
 
-// Dynamic shared memory of a CTA holding one polynomial of 2^logn words
-// and the larger of its two digit-plane buffers.
-inline size_t mxu_smem_bytes(int logn) {
-  const int R = (1 << logn) / LANES;
-  const int da = R * (NDIG * LANES + PAD), db = NDIG * LANES * (R + PAD);
-  return (sizeof(u64) << logn) + (da > db ? da : db);
+// k transforms of the words in sh, forward (rows, twiddle, lanes) or
+// inverse (lanes, twiddle, rows), the table stream running on from stage 0
+// of the launch: csrc/ntt_mxu.cu's kernel body.  The last transform folds
+// to [0, q), every one when FOLD_EACH (the parts probe's full variant);
+// XOR puts the products-only epilogue in place of the folds and the
+// twiddle.  ptxas serialises the wgmma of this loop (C7518) when the
+// direction is known at compile time: the parts probe passes it at run
+// time as the transform does.
+template <int R, int EPI = FOLD, bool FOLD_EACH = false>
+__device__ __forceinline__ void transforms(unsigned char* planes, u64* sh, const Ring<R>& ring,
+                                           const u64* __restrict__ tw,
+                                           const u64* __restrict__ tws,
+                                           const u64* __restrict__ crow,
+                                           const u64* __restrict__ ccol, u64 q, u64 delta, int wg,
+                                           int k, int inverse) {
+  const unsigned paddr = smem_u32(planes);
+  int g = 0;
+  for (int it = 0; it < k; ++it) {
+    const bool fin = FOLD_EACH || it == k - 1;
+    if (!inverse) {
+      split_rows_sw<R>(sh, planes);
+      fence_async_shared();
+      __syncthreads();
+      product_step<R, true, true, EPI>(paddr, sh, ring, g, crow, tw, tws, fin, q, delta, wg);
+      __syncthreads();
+      split_lanes_sw<R>(sh, planes);
+      fence_async_shared();
+      __syncthreads();
+      product_step<R, false, false, EPI>(paddr, sh, ring, g, ccol, tw, tws, fin, q, delta, wg);
+      __syncthreads();
+    } else {
+      split_lanes_sw<R>(sh, planes);
+      fence_async_shared();
+      __syncthreads();
+      product_step<R, false, true, EPI>(paddr, sh, ring, g, ccol, tw, tws, fin, q, delta, wg);
+      __syncthreads();
+      split_rows_sw<R>(sh, planes);
+      fence_async_shared();
+      __syncthreads();
+      product_step<R, true, false, EPI>(paddr, sh, ring, g, crow, tw, tws, fin, q, delta, wg);
+      __syncthreads();
+    }
+  }
 }
 
 }  // namespace

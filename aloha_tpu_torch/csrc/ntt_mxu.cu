@@ -71,210 +71,19 @@
 // Bound on Hopper: a transform is 1.0066e8 int8 MACs (33.55 M in the rows,
 // 67.11 M in the lanes), 101.7 ns a polynomial at the dense peak of 1,979
 // TOP/s over the card.  A CTA streams each table byte from L2 once per
-// transform (1.25 MiB of digits and 128 KiB of twiddles, against 4 MiB of
-// fragments for the mma.sync design).  Measured (PERF.md): the table
-// stream, the products and the integer work (splits, folds, epilogue) add
-// with little overlap, and sharing each tile across a cluster of two CTAs
-// by multicast, which halves the L2 reads, made it slower: the limit is
-// inside the SM.  The likely one (an estimate: no counter here reads it) is
-// shared memory's 128 bytes a clock: a wgmma at N = 64 reads 4 KiB of
-// operands in its 32 clocks, so the ring's copies, the splits and the
-// epilogue's stores wait for the products' operand reads.
-#include "mxu_core.cuh"  // fold59's constants, fold_final, finish
-#include "wgmma_s8.cuh"
+// transform (1.25 MiB of digits and 128 KiB of twiddles).  Measured
+// (PERF.md; csrc/probe_mxu.cu's parts probe runs these steps with and
+// without the folds): the table stream, the products and the integer work
+// (splits, folds, epilogue) add with little overlap, and sharing each tile
+// across a cluster of two CTAs by multicast, which halves the L2 reads,
+// made it slower: the limit is inside the SM.  The likely one (an
+// estimate: no counter here reads it) is shared memory's 128 bytes a
+// clock: a wgmma at N = 64 reads 4 KiB of operands in its 32 clocks, so
+// the ring's copies, the splits and the epilogue's stores wait for the
+// products' operand reads.
+#include "mxu_core.cuh"  // the transform's device code
 
 namespace {
-
-constexpr int TF_WGS = 2;                      // warpgroups a CTA
-constexpr int TF_THREADS = TF_WGS * 128;
-constexpr int TF_WARPS = TF_THREADS / 32;      // arrivals on an `empty` mbarrier
-constexpr int SLOTS = 4;                       // table ring slots
-constexpr unsigned TILE = 16384;               // bytes of a slot and of a stage in the stream
-constexpr unsigned KBLOCK = LANES * LANES;     // a 128-row k-block of 128 bytes
-constexpr int LANE_STAGES = NDIG * NDIG;       // (j, plane kk)
-constexpr int MAX_DEVICES = 64;
-
-template <int R>
-struct Ring {
-  static constexpr int ROW_STAGES = NDIG * R / 32;  // (j, pair of k-blocks)
-  static constexpr int STAGES = ROW_STAGES + LANE_STAGES;
-  static constexpr unsigned ROW_BYTES = 2 * R * LANES;
-  static constexpr unsigned PLANES = NDIG * R * LANES;
-  // planes, ring, words, mbarriers, and 1 KiB to align the swizzle atoms
-  static constexpr size_t SMEM = SW128_ATOM + PLANES + SLOTS * TILE + sizeof(u64) * R * LANES +
-                                 sizeof(unsigned long long) * 2 * SLOTS;
-  static_assert(SMEM <= 232448, "one CTA's shared memory");
-
-  unsigned char* slots;
-  unsigned long long* full;    // per slot: the stage's bytes have landed
-  unsigned long long* empty;   // per slot: every warp is done with it
-  const signed char* stream;   // this modulus's stages, TILE bytes apart
-  int row_first;               // first row stage (0 forward, LANE_STAGES inverse)
-  int total;                   // stages of the launch: k x STAGES
-  bool leader;
-
-  // stage g of the launch into slot g mod SLOTS (when the leader)
-  __device__ __forceinline__ void load(int g) const {
-    const int s = g % STAGES, slot = g % SLOTS;
-    const bool row = s >= row_first && s < row_first + ROW_STAGES;
-    bulk_load(slots + slot * TILE, stream + (size_t)s * TILE, row ? ROW_BYTES : TILE,
-              full + slot, leader);
-  }
-
-  // this warp is done with stage g; the leader refills its slot once all are
-  __device__ __forceinline__ void release(int g) const {
-    const int slot = g % SLOTS;
-    mbar_arrive(empty + slot, (threadIdx.x & 31) == 0);
-    if (g + SLOTS < total) {
-      mbar_wait_if(empty + slot, (g / SLOTS) & 1, leader);
-      load(g + SLOTS);
-    }
-  }
-};
-
-// byte i of d[k] = byte k of x[i] (a 4 x 4 byte transpose)
-__device__ __forceinline__ void transpose4(const u32 (&x)[4], u32* d) {
-  const u32 a = __byte_perm(x[0], x[1], 0x5140), b = __byte_perm(x[0], x[1], 0x7362);
-  const u32 c = __byte_perm(x[2], x[3], 0x5140), e = __byte_perm(x[2], x[3], 0x7362);
-  d[0] = __byte_perm(a, c, 0x5410);
-  d[1] = __byte_perm(a, c, 0x7632);
-  d[2] = __byte_perm(b, e, 0x5410);
-  d[3] = __byte_perm(b, e, 0x7632);
-}
-
-// byte i of d[kk] = biased digit kk of v[i]
-__device__ __forceinline__ void digits4(const u64 (&v)[4], u32 (&d)[NDIG]) {
-  u32 lo[4], hi[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lo[i] = (u32)v[i] ^ 0x80808080u;
-    hi[i] = (u32)(v[i] >> 32) ^ 0x80808080u;
-  }
-  transpose4(lo, d);
-  transpose4(hi, d + 4);
-}
-
-// The rows product's A: k-block kb (128 rows of 128 bytes) holds, in row
-// l, bytes 128 kb .. 128 kb + 127 of k = kk R + r.  A thread takes lane l
-// and rows r0 .. r0 + 15, so each plane's 16 bytes are one swizzled chunk.
-template <int R>
-__device__ __forceinline__ void split_rows_sw(const u64* sh, unsigned char* planes) {
-  for (int it = threadIdx.x; it < (R / 16) * LANES; it += TF_THREADS) {
-    const int l = it % LANES, r0 = (it / LANES) * 16;
-    u32 d[4][NDIG];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      u64 v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = sh[(r0 + 4 * g + i) * LANES + l];
-      digits4(v, d[g]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < NDIG; ++kk) {
-      const int k = kk * R + r0;
-      *(uint4*)(planes + (k >> 7) * KBLOCK + l * LANES + ((((k & 127) >> 4) ^ (l & 7)) << 4)) =
-          make_uint4(d[0][kk], d[1][kk], d[2][kk], d[3][kk]);
-    }
-  }
-}
-
-// The lanes product's B: k-block kk (R x 128 bytes) holds row r, byte l of
-// k = kk 128 + l.  A thread takes row r and lanes l0 .. l0 + 3.
-template <int R>
-__device__ __forceinline__ void split_lanes_sw(const u64* sh, unsigned char* planes) {
-  for (int it = threadIdx.x; it < R * (LANES / 4); it += TF_THREADS) {
-    const int r = it / (LANES / 4), l0 = (it % (LANES / 4)) * 4;
-    const ulonglong2 a = *(const ulonglong2*)(sh + r * LANES + l0);
-    const ulonglong2 b = *(const ulonglong2*)(sh + r * LANES + l0 + 2);
-    const u64 v[4] = {a.x, a.y, b.x, b.y};
-    u32 d[NDIG];
-    digits4(v, d);
-    unsigned char* row = planes + r * LANES + ((((l0 >> 4) ^ (r & 7))) << 4) + (l0 & 15);
-#pragma unroll
-    for (int kk = 0; kk < NDIG; ++kk) *(u32*)(row + kk * (R * LANES)) = d[kk];
-  }
-}
-
-// One product step (ROWS: the rows, else the lanes) over its table stages,
-// starting at stage g of the launch; the folded words go to sh, through
-// finish<MID>.  cvec: crow (ROWS) or ccol.
-template <int R, bool ROWS, bool MID>
-__device__ __forceinline__ void product_step(unsigned planes, u64* sh, const Ring<R>& ring,
-                                             int& g, const u64* __restrict__ cvec,
-                                             const u64* __restrict__ tw,
-                                             const u64* __restrict__ tws, bool fin, u64 q,
-                                             u64 delta, int wg) {
-  constexpr int NACC = R / 2;                   // accumulators of m64nRk32
-  constexpr int PARTS = ROWS ? R / 32 : NDIG;   // stages per digit j
-  constexpr int KB = ROWS ? 2 : 1;              // k-blocks per stage
-  constexpr unsigned BLK = R * LANES;           // a k-block of the R-row operand
-  constexpr int b = ROWS ? (R == 64 ? 23 : 22) : LANE_BITS;  // bias_bits(8R), bias_bits(1024)
-  static_assert(ROWS ? NDIG * R << 14 == 1 << b : true, "row bias");
-  const unsigned wrow = wg * 64 * LANES;        // the warpgroup's 64 rows of a 128-row operand
-  u64 lo[NACC], hi[NACC];
-  int acc[NACC];
-#pragma unroll
-  for (int o = 0; o < NACC; ++o) {
-    lo[o] = hi[o] = 0;
-    acc[o] = 0;  // never read: the first product of each j does not accumulate
-  }
-  int pend = -1;  // a stage whose products may still run, its slot not yet released
-#pragma unroll 1
-  for (int j = 0; j < NDIG; ++j) {
-#pragma unroll 1
-    for (int p = 0; p < PARTS; ++p, ++g) {
-      const int slot = g % SLOTS;
-      mbar_wait(ring.full + slot, (g / SLOTS) & 1);
-      const unsigned tile = smem_u32(ring.slots + slot * TILE);
-      wgmma_fence();
-#pragma unroll
-      for (int kb = 0; kb < KB; ++kb)
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {
-          const unsigned a = ROWS ? planes + (p * KB + kb) * KBLOCK + wrow + 32 * kc
-                                  : tile + wrow + 32 * kc;
-          const unsigned bb = ROWS ? tile + kb * BLK + 32 * kc : planes + p * BLK + 32 * kc;
-          wgmma_m64k32_s8(acc, sw128_desc(a), sw128_desc(bb), p | kb | kc);
-        }
-      wgmma_commit();
-      if (p < PARTS - 1) {
-        wgmma_wait<1>();
-        if (pend >= 0) ring.release(pend);
-        pend = g;
-        continue;
-      }
-      wgmma_wait<0>();
-      fence_operands(acc);
-      if (pend >= 0) ring.release(pend);
-      ring.release(g);
-      pend = -1;
-      // fold59's two halves, digit j at a time
-      const u32 bias = 1u << b;
-      if (j < 5) {
-#pragma unroll
-        for (int o = 0; o < NACC; ++o) lo[o] += (u64)((u32)acc[o] + bias) << (8 * j);
-      } else {
-#pragma unroll
-        for (int o = 0; o < NACC; ++o) hi[o] += (u64)((u32)acc[o] + bias) << (8 * (j - 5));
-      }
-    }
-  }
-  // d[4 blk + 2h + e] of lane 4 gq + t in warp w: row (lane) m = 64 wg + 16 w
-  // + gq + 8h, column i = 8 blk + 2t + e (csrc/wgmma_s8.cuh); word i 128 + m
-  const int lane = threadIdx.x & 31, m0 = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-  const int t = lane & 3;
-#pragma unroll
-  for (int o = 0; o < NACC; ++o) {
-    const int m = m0 + 8 * ((o >> 1) & 1), i = 8 * (o >> 2) + 2 * t + (o & 1);
-    const int idx = i * LANES + m;
-    // the tail of fold59: V = lo + hi 2^40 + c, W = (V mod 2^59) + 20q - (V >> 59) delta
-    const u64 c = ROWS ? cvec[i] : cvec[m];
-    const u64 v1 = lo[o] + (hi[o] << 40), v2 = v1 + c;
-    const u64 vhi = (hi[o] >> 24) + (v1 < lo[o]) + (v2 < v1);
-    const u64 w = (v2 & MASK59) + 20 * q - ((vhi << 5) | (v2 >> 59)) * delta;
-    sh[idx] = finish<MID>(w, idx, tw, tws, fin, q, delta);
-  }
-}
 
 // x, y: (M, nb, R 128) u64; stream: per modulus Ring<R>::STAGES x TILE bytes
 // (ntt_mxu.table_stream); tw, tws: (M, R 128); crow: (M, R); ccol: (M, 128).
@@ -315,34 +124,7 @@ ntt_mxu_kernel(const u64* __restrict__ x, u64* __restrict__ y, const signed char
   const size_t off = ((size_t)m * nb + blockIdx.x) * n;
   for (int i = threadIdx.x; i < n; i += TF_THREADS) sh[i] = x[off + i];
   __syncthreads();
-  const unsigned paddr = smem_u32(planes);
-  int g = 0;
-  for (int it = 0; it < k; ++it) {
-    const bool fin = it == k - 1;
-    if (!inverse) {
-      split_rows_sw<R>(sh, planes);
-      fence_async_shared();
-      __syncthreads();
-      product_step<R, true, true>(paddr, sh, ring, g, crow, tw, tws, fin, q, delta, wg);
-      __syncthreads();
-      split_lanes_sw<R>(sh, planes);
-      fence_async_shared();
-      __syncthreads();
-      product_step<R, false, false>(paddr, sh, ring, g, ccol, tw, tws, fin, q, delta, wg);
-      __syncthreads();
-    } else {
-      split_lanes_sw<R>(sh, planes);
-      fence_async_shared();
-      __syncthreads();
-      product_step<R, false, true>(paddr, sh, ring, g, ccol, tw, tws, fin, q, delta, wg);
-      __syncthreads();
-      split_rows_sw<R>(sh, planes);
-      fence_async_shared();
-      __syncthreads();
-      product_step<R, true, false>(paddr, sh, ring, g, crow, tw, tws, fin, q, delta, wg);
-      __syncthreads();
-    }
-  }
+  transforms<R>(planes, sh, ring, tw, tws, crow, ccol, q, delta, wg, k, inverse);
   for (int i = threadIdx.x; i < n; i += TF_THREADS) y[off + i] = sh[i];
 }
 

@@ -1,6 +1,6 @@
 // Cost probes of the tensor-core transform, on resident data: the parts
-// measure the mma.sync design of csrc/mxu_core.cuh (csrc/ntt_mxu.cu's until
-// it moved to wgmma), the rate the wgmma products it runs on now.
+// run csrc/ntt_mxu.cu's own device code (csrc/mxu_core.cuh) with and
+// without its folds, the rate the wgmma products alone.
 //
 // Replaces two TPU kernels:
 //   tools/probe_mxu.py:58 (`kernel` :30-49): the int8 matmul rate of the
@@ -12,25 +12,37 @@
 //   tools/probe_mxu_parts.py:123 (`build(variant)` -> `body` :96, variants
 //     of `make_stages` :39-88): one forward 4-step transform per repetition
 //     -> aloha_probe_mxu_parts, in three variants:
-//       full  the mma.sync steps (csrc/mxu_core.cuh), canonical after
-//             every repetition (the TPU's _fwd_stages(lazy=False));
-//       mxu   the digit splits and both products, with the XOR epilogue in
-//             place of the folds and the twiddle: the products' share;
-//       vpu   no products: each word's fake accumulators e_j = int32(lo32(x)
-//             ^ j) folded with b_row and crow[r], the Shoup product by
-//             tw[r][l], then e_j = int32(lo32(y) ^ hi32(y) ^ j) folded with
-//             b_lane and ccol[l], then fold_final: the integer work's share.
-//             Its accumulators are not bounded by 2^b, so it takes the WIDE
-//             fold (one more carry), and its Shoup is the exact one (the
-//             TPU's 16-bit-limb quotient is q too large on about 1 word in
-//             10^5).
+//       full  the transform's steps (split_rows_sw, product_step over the
+//             rows with the twiddle, split_lanes_sw, product_step over the
+//             lanes), with the final fold after every repetition, so the
+//             words are canonical each time (the TPU's
+//             _fwd_stages(lazy=False); the chain folds at its end only);
+//       mxu   the same splits, table stream and wgmma steps, with the XOR
+//             epilogue in place of the folds and the twiddle: the products'
+//             and the stream's share;
+//       vpu   no split, no wgmma, no ring: each thread takes its 32 words of
+//             each epilogue at product_step's places, reads and writes them
+//             in shared memory once per epilogue, and folds fake
+//             accumulators e_j = int32(lo32(x) ^ j) a digit at a time with
+//             the row bias, takes the tail with crow[r] and the Shoup
+//             product by tw[r][l] (y), then e_j = int32(lo32(y) ^ hi32(y) ^
+//             j) with the lane bias and ccol[l], then fold_final: the
+//             integer work's share.  Its accumulators are not bounded by
+//             2^b, so lo can pass 2^64 at digit 4 and carries into hi (the
+//             WIDE fold), and its Shoup is the exact one (the TPU's
+//             16-bit-limb quotient is q too large on about 1 word in 10^5).
+// Every variant is one CTA of two warpgroups a polynomial, asks for the
+// transform's shared memory (Ring<64>::SMEM) and takes __launch_bounds__(256,
+// 1), so all three run at the transform's one CTA an SM and their times
+// compare.  The table stream runs on across repetitions (stage g of the
+// launch, 0 .. 80 reps - 1), as in the chain.
 //
-// Both repeat in one launch on data that stays in shared memory; the
+// Both probes repeat in one launch on data that stays in shared memory; the
 // marginal over REPS is the cost of one repetition (probes/common.py).
 //
-// The rate probe on wgmma (the rate a wgmma transform can reach; the
-// mma.sync product loop of csrc/mxu_core.cuh reaches 467.8-470.9 T-MAC/s on the
-// same products, PERF.md).  A CTA owns a tile of 128 rows of x in all 8 planes:
+// The rate probe on wgmma (the rate a wgmma transform can reach; an
+// mma.sync product loop reached 467.8-470.9 T-MAC/s on the same products,
+// PERF.md).  A CTA owns a tile of 128 rows of x in all 8 planes:
 // two warpgroups of 64 rows each (the wgmma M), each on its own with its
 // own rows, w ring and mbarriers.  The whole tile is resident for all
 // repetitions; BP = 256 (M = 16384) makes 128 CTAs, one wave on 132 SMs.
@@ -72,11 +84,10 @@
 // peak).  Of the parts, full and mxu carry 1.007e8 int8 MACs per
 // transform; vpu only integer instructions (probes/probe_mxu_parts.OPS).
 #include "mxu_core.cuh"
-#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int PARTS_LOGN = 13;              // the parts probe runs at n = 8192
+constexpr int PARTS_R = 64;                 // the parts probe runs at n = 8192
 
 enum PartsVariant { PART_FULL = 0, PART_MXU = 1, PART_VPU = 2 };
 
@@ -104,7 +115,7 @@ __device__ __forceinline__ void combine(const int (&a)[64], int (&s)[64]) {
 
 // A warpgroup's w ring: the slot the next step reads and the parity of
 // that slot's use.
-struct Ring {
+struct WRing {
   unsigned char* base;        // RATE_SLOTS slots of RATE_W bytes
   unsigned long long* full;   // one mbarrier per slot
   unsigned slot, phase;
@@ -115,7 +126,7 @@ struct Ring {
 // J+2 (none past the last repetition) and its accumulators `prev` go into s.
 template <int J>
 __device__ __forceinline__ void rate_step(int (&acc)[64], int (&prev)[64], int (&s)[64],
-                                          unsigned xaddr, Ring& r, const signed char* wimg,
+                                          unsigned xaddr, WRing& r, const signed char* wimg,
                                           bool leader, bool last_rep) {
   mbar_wait(r.full + r.slot, r.phase);
   const unsigned waddr = smem_u32(r.base + r.slot * RATE_W);
@@ -176,7 +187,7 @@ mxu_rate_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   unsigned char* const xs = smem + wg * RATE_WG;
   unsigned long long* const bars =
       (unsigned long long*)(smem + RATE_WGS * RATE_WG) + wg * (1 + RATE_SLOTS);
-  Ring ring{xs + RATE_X, bars + 1, 0, 0};
+  WRing ring{xs + RATE_X, bars + 1, 0, 0};
   const bool leader = tid == 0;
   if (leader) {
     for (int i = 0; i < 1 + RATE_SLOTS; ++i) mbar_init(bars + i, 1);
@@ -214,74 +225,124 @@ mxu_rate_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   }
 }
 
-// The vpu variant's repetition of one word at position idx = r * 128 + l,
-// b_row the row product's bias exponent.
-__device__ __forceinline__ u64 vpu_word(u64 x, int idx, int b_row, const u64* __restrict__ tw,
-                                        const u64* __restrict__ tws,
-                                        const u64* __restrict__ crow,
-                                        const u64* __restrict__ ccol, u64 q, u64 delta) {
-  int e[NDIG];
-  const int lo = (int)(u32)x;
+// The vpu variant's epilogue of one product step (ROWS: the rows, then the
+// twiddle; else the lanes, then the final fold) at product_step's places:
+// fake accumulators e_j = int32(v ^ j), v = lo32(x) (ROWS) or lo32(x) ^
+// hi32(x), folded a digit at a time as product_step folds (lo for j < 5,
+// hi for j >= 5, the j loop not unrolled), with the WIDE carry at j = 4.
+template <int R, bool ROWS>
+__device__ __forceinline__ void vpu_step(u64* sh, const u64* __restrict__ cvec,
+                                         const u64* __restrict__ tw,
+                                         const u64* __restrict__ tws, u64 q, u64 delta,
+                                         int wg) {
+  constexpr int NACC = R / 2;
+  constexpr u32 bias = 1u << BIAS_BITS<R, ROWS>;
+  const Places at(wg);
+  u32 v[NACC];
+  u64 lo[NACC], hi[NACC];
 #pragma unroll
-  for (int j = 0; j < NDIG; ++j) e[j] = lo ^ j;
-  const u64 w = fold59<true>(e, b_row, crow[idx / LANES], q, delta);
-  const u64 y = shoup_mul(w, tw[idx], tws[idx], q);
-  const int lo2 = (int)((u32)y ^ (u32)(y >> 32));
+  for (int o = 0; o < NACC; ++o) {
+    const u64 w = sh[at.row(o) * LANES + at.lane(o)];
+    v[o] = ROWS ? (u32)w : (u32)w ^ (u32)(w >> 32);
+    lo[o] = hi[o] = 0;
+  }
+#pragma unroll 1
+  for (int j = 0; j < NDIG; ++j) {
+    if (j < 4) {
 #pragma unroll
-  for (int j = 0; j < NDIG; ++j) e[j] = lo2 ^ j;
-  return fold_final(fold59<true>(e, LANE_BITS, ccol[idx % LANES], q, delta), q, delta);
-}
-
-// x, y: (nb, 2^logn) int64; the forward fragment tables at modulus q.
-// The ring comes in at run time, as it did to the mma.sync transform, so
-// that the steps compile as they did there (a compile-time R unrolls them
-// differently).
-template <int VARIANT>
-__global__ void __launch_bounds__(MXU_THREADS, 1)
-mxu_parts_kernel(const u64* __restrict__ x, u64* __restrict__ y, const uint4* __restrict__ af,
-                 const uint2* __restrict__ tf, const u64* __restrict__ tw,
-                 const u64* __restrict__ tws, const u64* __restrict__ crow,
-                 const u64* __restrict__ ccol, u64 q, int logn, int reps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = 1 << logn, R = n / LANES;
-  u64* sh = (u64*)smem;
-  unsigned char* dig = smem + (size_t)n * sizeof(u64);
-  const u64 delta = q - (1ull << 59);
-  const size_t off = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += MXU_THREADS) sh[i] = x[off + i];
-  __syncthreads();
-  for (int it = 0; it < reps; ++it) {
-    if constexpr (VARIANT == PART_VPU) {
-      // elementwise: each thread keeps to its own words, no barrier
-      const int b_row = __ffs(NDIG * R) - 1 + 14;
-      for (int i = threadIdx.x; i < n; i += MXU_THREADS)
-        sh[i] = vpu_word(sh[i], i, b_row, tw, tws, crow, ccol, q, delta);
+      for (int o = 0; o < NACC; ++o) lo[o] += (u64)((v[o] ^ j) + bias) << (8 * j);
+    } else if (j == 4) {
+      // lo < 2^57 so far; lo + u_4 2^32 can pass 2^64
+#pragma unroll
+      for (int o = 0; o < NACC; ++o) {
+        const u64 t = lo[o] + ((u64)((v[o] ^ 4) + bias) << 32);
+        hi[o] = (u64)(t < lo[o]) << 24;
+        lo[o] = t;
+      }
     } else {
-      constexpr int EPI = VARIANT == PART_FULL ? FOLD : XOR;
-      split_rows(sh, dig, R);
-      __syncthreads();
-      row_step<true, EPI>(dig, sh, R, af, crow, tw, tws, true, q, delta);
-      __syncthreads();
-      split_lanes(sh, dig, R);
-      __syncthreads();
-      lane_step<false, EPI>(dig, sh, R, tf, ccol, tw, tws, true, q, delta);
-      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < NACC; ++o) hi[o] += (u64)((v[o] ^ j) + bias) << (8 * (j - 5));
     }
   }
-  for (int i = threadIdx.x; i < n; i += MXU_THREADS) y[off + i] = sh[i];
+#pragma unroll
+  for (int o = 0; o < NACC; ++o) {
+    const int m = at.lane(o), i = at.row(o);
+    const int idx = i * LANES + m;
+    const u64 w = fold59(lo[o], hi[o], ROWS ? cvec[i] : cvec[m], q, delta);
+    sh[idx] = finish<ROWS>(w, idx, tw, tws, true, q, delta);
+  }
+}
+
+// x, y: (nb, 8192) u64; stream: ntt_mxu.table_stream of q's forward tables
+// (80 stages of TILE bytes); tw, tws: (8192,); crow: (64,); ccol: (128,).
+// The shared memory is carved as csrc/ntt_mxu.cu's kernel carves it.
+// inverse: 0 (the forward transform), given at run time so that full and
+// mxu compile the transform's own loop (mxu_core.cuh's `transforms`).
+template <int VARIANT>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+mxu_parts_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                 const signed char* __restrict__ stream, const u64* __restrict__ tw,
+                 const u64* __restrict__ tws, const u64* __restrict__ crow,
+                 const u64* __restrict__ ccol, u64 q, int reps, int inverse) {
+  using RingR = Ring<PARTS_R>;
+  constexpr int n = PARTS_R * LANES;
+  constexpr bool RING = VARIANT != PART_VPU;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + (SW128_ATOM - smem_u32(smem_raw) % SW128_ATOM) % SW128_ATOM;
+  unsigned char* const planes = smem;
+  unsigned char* const slots = planes + RingR::PLANES;
+  u64* const sh = (u64*)(slots + SLOTS * TILE);
+  unsigned long long* const bars = (unsigned long long*)(sh + n);
+  const u64 delta = q - (1ull << 59);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const RingR ring{slots, bars, bars + SLOTS, stream, inverse ? LANE_STAGES : 0,
+                   RING ? reps * RingR::STAGES : 0, threadIdx.x == 0};
+  if (RING && ring.leader) {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(ring.full + i, 1);
+      mbar_init(ring.empty + i, TF_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  for (int g = 0; g < SLOTS && g < ring.total; ++g) ring.load(g);
+  const size_t off = (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += TF_THREADS) sh[i] = x[off + i];
+  __syncthreads();
+  if constexpr (RING) {
+    transforms<PARTS_R, VARIANT == PART_FULL ? FOLD : XOR, true>(planes, sh, ring, tw, tws, crow,
+                                                                 ccol, q, delta, wg, reps,
+                                                                 inverse);
+  } else {
+    // each thread keeps to its own words, no barrier; the clobbers keep the
+    // words' round trip through shared memory in each epilogue
+    for (int it = 0; it < reps; ++it) {
+      vpu_step<PARTS_R, true>(sh, crow, tw, tws, q, delta, wg);
+      asm volatile("" ::: "memory");
+      vpu_step<PARTS_R, false>(sh, ccol, tw, tws, q, delta, wg);
+      asm volatile("" ::: "memory");
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n; i += TF_THREADS) y[off + i] = sh[i];
 }
 
 template <int VARIANT>
-cudaError_t launch_parts(const void* x, void* y, const void* af, const void* tf, const void* tw,
+cudaError_t launch_parts(int device, const void* x, void* y, const void* stream, const void* tw,
                          const void* tws, const void* crow, const void* ccol, u64 q, int nb,
                          int reps, cudaStream_t s) {
-  const size_t smem = mxu_smem_bytes(PARTS_LOGN);
-  cudaError_t err = cudaFuncSetAttribute(mxu_parts_kernel<VARIANT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  mxu_parts_kernel<VARIANT><<<nb, MXU_THREADS, smem, s>>>(
-      (const u64*)x, (u64*)y, (const uint4*)af, (const uint2*)tf, (const u64*)tw,
-      (const u64*)tws, (const u64*)crow, (const u64*)ccol, q, PARTS_LOGN, reps);
+  static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
+  if (!attribute_set[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(mxu_parts_kernel<VARIANT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Ring<PARTS_R>::SMEM);
+    if (err != cudaSuccess) return err;
+    attribute_set[device] = true;
+  }
+  mxu_parts_kernel<VARIANT><<<nb, TF_THREADS, Ring<PARTS_R>::SMEM, s>>>(
+      (const u64*)x, (u64*)y, (const signed char*)stream, (const u64*)tw, (const u64*)tws,
+      (const u64*)crow, (const u64*)ccol, q, reps, 0);
   return cudaGetLastError();
 }
 
@@ -310,22 +371,28 @@ extern "C" int aloha_probe_mxu_rate(int device, const void* x, void* y, const vo
   return (int)cudaGetLastError();
 }
 
-// x, y: (nb, 8192) int64; af, tf, tw, tws, crow, ccol: ntt_mxu.fragment_tables'
-// forward tables of q (one modulus); variant: 0 full, 1 mxu, 2 vpu; reps >= 0.
-extern "C" int aloha_probe_mxu_parts(int device, const void* x, void* y, const void* af,
-                                     const void* tf, const void* tw, const void* tws,
-                                     const void* crow, const void* ccol, u64 q, int variant,
-                                     int nb, int reps, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// x, y: (nb, 8192) int64, nb >= 1; stream, tw, tws, crow, ccol:
+// ntt_mxu.kernel_tables' forward operands of q (one modulus), the stream
+// 16-byte aligned; variant: 0 full, 1 mxu, 2 vpu; reps >= 0.
+extern "C" int aloha_probe_mxu_parts(int device, const void* x, void* y, const void* stream,
+                                     const void* tw, const void* tws, const void* crow,
+                                     const void* ccol, u64 q, int variant, int nb, int reps,
+                                     void* cuda_stream) {
+  if (device < 0 || device >= MAX_DEVICES || nb < 1 || reps < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
   switch (variant) {
     case PART_FULL:
-      return (int)launch_parts<PART_FULL>(x, y, af, tf, tw, tws, crow, ccol, q, nb, reps, s);
+      return (int)launch_parts<PART_FULL>(device, x, y, stream, tw, tws, crow, ccol, q, nb, reps,
+                                          s);
     case PART_MXU:
-      return (int)launch_parts<PART_MXU>(x, y, af, tf, tw, tws, crow, ccol, q, nb, reps, s);
+      return (int)launch_parts<PART_MXU>(device, x, y, stream, tw, tws, crow, ccol, q, nb, reps,
+                                         s);
     case PART_VPU:
-      return (int)launch_parts<PART_VPU>(x, y, af, tf, tw, tws, crow, ccol, q, nb, reps, s);
+      return (int)launch_parts<PART_VPU>(device, x, y, stream, tw, tws, crow, ccol, q, nb, reps,
+                                         s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -210,24 +210,6 @@ def plain_tables(n: int, q: int, root: int, inverse: bool, device: torch.device)
                   _i64(tb.tws, device), _i64(tb.crow, device), _i64(tb.ccol, device))
 
 
-def frag_rows(a: np.ndarray) -> np.ndarray:
-    """(8, R, K) row matrices -> the A registers of mma.m16n8k32 s8, per lane:
-    [j][R/16][K/32][lane = 4 g + t][reg = 2 s + h][byte] holds
-    a[j, 16 mt + 8 h + g, 32 ks + 16 s + 4 t + byte]."""
-    nd, R, K = a.shape
-    f = a.reshape(nd, R // 16, 2, 8, K // 32, 2, 4, 4)  # j mt h g ks s t byte
-    return np.ascontiguousarray(f.transpose(0, 1, 4, 3, 6, 5, 2, 7))
-
-
-def frag_lanes(t: np.ndarray) -> np.ndarray:
-    """(8, K, 128) lane matrices -> the B registers of mma.m16n8k32 s8, per
-    lane: [j][128/8][K/32][lane = 4 g + t][reg = s][byte] holds
-    t[j, 32 ks + 16 s + 4 t + byte, 8 nt + g]."""
-    nd, K, L = t.shape
-    f = t.reshape(nd, K // 32, 2, 4, 4, L // 8, 8)  # j ks s t byte nt g
-    return np.ascontiguousarray(f.transpose(0, 5, 1, 6, 3, 2, 4))
-
-
 def swizzle128(rows: np.ndarray) -> np.ndarray:
     """(..., r, 128) int8 tile rows -> the layout the kernel's wgmma
     descriptors read (csrc/wgmma_s8.cuh): 16-byte chunk c of row r stored at
@@ -280,21 +262,6 @@ def kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.
 
 def _stack_u64(per, field: str, device) -> torch.Tensor:
     return torch.from_numpy(np.stack([getattr(t, field).view(np.int64) for t in per])).to(device)
-
-
-@functools.lru_cache(maxsize=4)
-def fragment_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
-    """The `mma.sync` parts probe's operands (`probes/probe_mxu_parts`,
-    csrc/mxu_core.cuh) on `device`: fragment-ordered int8 row and lane
-    digits, tw, tws, crow, ccol and q (int64)."""
-    per = [tables_np(n, q, _forward_root(q, r, inverse), inverse) for q, r in zip(qs, roots)]
-
-    def frags(field, order):
-        return torch.from_numpy(np.stack([order(getattr(t, field)).reshape(-1) for t in per]))
-
-    return (frags("row", frag_rows).to(device), frags("lane", frag_lanes).to(device),
-            *(_stack_u64(per, f, device) for f in ("tw", "tws", "crow", "ccol")),
-            torch.tensor(qs, dtype=torch.int64, device=device))
 
 
 # ----------------------------------------------------------- plain version

@@ -11,7 +11,8 @@ polynomial (or block) per repetition (`common.marginal`):
 - `stream_prof2`: lane stages, full / fixed table row / fixed distance /
   no butterfly (tools/stream_prof2.py);
 - `probe_mxu`, `probe_mxu_parts`: the int8 tensor-core rate and the split
-  of a tensor-core transform (tools/probe_mxu.py, probe_mxu_parts.py);
+  of the tensor-core transform, on its own device code (tools/probe_mxu.py,
+  probe_mxu_parts.py);
 - `probe_dynstage`, `probe_dynsub`: stage loops under a runtime index
   (tools/probe_dynstage.py, probe_dynsub.py).
 

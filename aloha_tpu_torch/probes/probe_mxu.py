@@ -10,10 +10,10 @@ int32), combines s = acc_0 + sum_{j>=1} acc_j << (j mod 4) (int32,
 wrapping) and makes the next x: x_0 = int8(s), x_k = int8(s >> k) with an
 arithmetic shift.  The products are `wgmma.mma_async` m64n128k32 s8 with
 both operands in shared memory (csrc/wgmma_s8.cuh), so the rate is the one
-a `wgmma` transform can reach; the `mma.sync.m16n8k32` product loop of
-csrc/mxu_core.cuh (the transform's earlier design) reaches 467.8-470.9
-T-MAC/s on the same products on the H100 (PERF.md).  (Adding the x_k first would give the same acc_j with an
-eighth of the MACs: the kernel does not.)  The kernel reads w as
+a `wgmma` transform can reach; an `mma.sync.m16n8k32` product loop
+reached 467.8-470.9 T-MAC/s on the same products on the H100 (PERF.md).
+(Adding the x_k first would give the same acc_j with an eighth of the
+MACs: the kernel does not.)  The kernel reads w as
 `w_image(w)`, laid out once per w: `digit_products` lays it out on every
 call, `launch_rate` takes it laid out (the timed launches).
 

@@ -5,18 +5,27 @@
 Replaces the TPU kernel of tools/probe_mxu_parts.py:123 (`build(variant)`
 -> `body` :96, variants from `make_stages` :39-88) with
 `aloha_probe_mxu_parts` of `csrc/probe_mxu.cu`: REPS forward transforms of
-nb polynomials (8192 words under q0) held in shared memory, each one of
+nb polynomials (8192 words under q0) held in shared memory, on the device
+code of the transform the users run (`csrc/ntt_mxu.cu` through
+`csrc/mxu_core.cuh`: its splits, its table stream from
+`ntt_mxu.kernel_tables`, its `wgmma` product steps), each one of
 
-- full: the `mma.sync` steps of csrc/mxu_core.cuh (the transform's design
-  before csrc/ntt_mxu.cu moved to `wgmma`; the probe goes on measuring it,
-  with `ntt_mxu.fragment_tables`), canonical after every repetition:
-  `ntt_np.ntt` applied REPS times;
-- mxu: the digit splits and both products, the 8 accumulators xor-folded
-  to e and stored as u32(e) | u32(e + 1) << 32 after the rows and
-  u32(e) | u32(e ^ 3) << 32 after the lanes: no twiddle, no constants;
-- vpu: no products: e_j = int32(lo32(x) ^ j) folded with the row bias and
-  crow[r], the Shoup product by tw[r][l] (y), e_j = int32(lo32(y) ^
-  hi32(y) ^ j) folded with the lane bias and ccol[l], then the final fold.
+- full: the transform, canonical after every repetition (the final fold
+  each time, where the chain folds at its end only): `ntt_np.ntt` applied
+  REPS times;
+- mxu: the digit splits, the table stream and both products, the 8
+  accumulators xor-folded to e and stored as u32(e) | u32(e + 1) << 32
+  after the rows and u32(e) | u32(e ^ 3) << 32 after the lanes: no
+  twiddle, no constants;
+- vpu: no split, no products, no stream: at each word the products would
+  write, e_j = int32(lo32(x) ^ j) folded a digit at a time with the row
+  bias and crow[r], the Shoup product by tw[r][l] (y), e_j = int32(lo32(y)
+  ^ hi32(y) ^ j) folded with the lane bias and ccol[l], then the final fold.
+
+All three run at the transform's occupancy (one CTA of 256 threads an SM,
+its shared memory), so full against mxu + vpu says whether the products
+and the integer work overlap inside the SM (on the v5e they did not:
+aloha_tpu/ops/ntt_mxu.py:350-354).
 
 The TPU's transposes to (R, bp, 128) and back leave every constant at the
 same (row, lane) as here.  Where the TPU's 16-bit-limb Shoup quotient is q
@@ -25,14 +34,21 @@ whose Shoup is exact; everything else is word for word.
 
 The TPU script chained K separate calls; the port repeats in one launch
 (probes/common.py says why).  The marginal over REPS 4 and 12 (the
-script's KS) at nb = 256 (its NB) is the time of one transform, and
-full against mxu + vpu says whether the products and the integer work
-overlap (on the v5e they did not: aloha_tpu/ops/ntt_mxu.py:350-354).
+script's KS) at nb = 256 (its NB) is the time of one transform.
 
 Bound on the H100: the larger of MACS int8 MACs (full, mxu) over 1,979
 TOP/s and `OPS[variant]` INT32 instructions over the integer issue peak.
-TABLE_BYTES is what each variant pulls through L2 per polynomial per
-transform, counted from the warp-block loops (no L2 peak is claimed).
+OPS counts the arithmetic of csrc/mxu_core.cuh and csrc/probe_mxu.cu per
+word in common.py's units: a split 6 (the bias xor of both halves, 4
+byte permutes of the 4 x 4 transposes), the 8 digits of a fold 32 (8
+bias adds; digits 0 and 5 start lo and hi, the other six are each
+shifted into place and added, 4), fold59's tail 32, the vpu's carry out
+of lo 4, the final fold 18, a Shoup product 18, the XOR epilogue 11 (8
+xors, e + 1 or e ^ 3, the pack): full 176, mxu 34, vpu 189 a word.  TABLE_BYTES is what a variant pulls through L2 per
+polynomial per transform: the stream's 80 stages of 16 KiB (1.25 MiB; at
+R = 64 a row stage fills its slot), tw and tws (128 KiB), crow and ccol
+(1.5 KiB); full reads all, mxu the stream, vpu the rest (no L2 peak is
+claimed).
 """
 
 from __future__ import annotations
@@ -50,6 +66,12 @@ from aloha_tpu_torch.probes import common as C
 
 VARIANTS = ("full", "mxu", "vpu")
 REPS = (4, 12)
+#: batches of the edge sweep (`edge_data`): one CTA, about one wave of 132
+#: SMs at one CTA an SM, two waves
+EDGE_NBS = (1, 131, 132, 133, 264)
+#: SASS opcodes of the kernels' products: integer warpgroup products, and
+#: the integer and half-precision mma.sync ones
+SASS_OPS = ("IGMMA", "IMMA", "HMMA")
 LANES, NDIG = ntt_mxu.LANES, ntt_mxu.NDIG
 R = C.N // LANES
 B_ROW, B_LANE = ntt_mxu.bias_bits(NDIG * R), ntt_mxu.bias_bits(NDIG * LANES)
@@ -60,42 +82,51 @@ DELTA = C.Q - (1 << 59)
 #: plane) and the lane product (R x 1024 x 128 per plane)
 MACS = NDIG * R * NDIG * R * LANES + NDIG * R * NDIG * LANES * LANES
 
-# INT32 instructions per word, counted from csrc/mxu_core.cuh and
-# csrc/probe_mxu.cu in common.py's units (a 64-bit add, shift, compare or
-# logical op 2, a 32-bit op 1, a 64-bit low product 4)
-_SPLIT = C.ADD64 + NDIG  # the bias xor, one placement per byte
-_FOLD59 = (NDIG  # e_j + 2^b
-           + 6 * 2 * C.ADD64  # six terms shifted into place and added
-           + 2 * C.ADD64  # v1 = lo + (hi << 40)
-           + C.ADD64  # v2 = v1 + c
-           + 5 * C.ADD64  # vhi: a shift, two compares, two adds
-           + 3 * C.ADD64  # a = (vhi << 5) | (v2 >> 59)
-           + 3 * C.ADD64 + C.MUL64LO)  # (v2 mod 2^59) + 20q - a delta
-_FOLD59_WIDE = _FOLD59 + 2 * C.ADD64  # one more compare and add
+# INT32 instructions per word (the module docstring's counts)
+_SPLIT = C.ADD64 + 4
+# the 8 bias adds, and six digits shifted into place and added (digits
+# 0 and 5 start lo and hi)
+_DIGITS = NDIG + 6 * 2 * C.ADD64
+_TAIL = (2 * C.ADD64  # v1 = lo + (hi << 40)
+         + C.ADD64  # v2 = v1 + c
+         + 5 * C.ADD64  # vhi: a shift, two compares, two adds
+         + 3 * C.ADD64  # (vhi << 5) | (v2 >> 59)
+         + 3 * C.ADD64 + C.MUL64LO)  # (v2 mod 2^59) + 20q - a delta
+_FOLD59 = _DIGITS + _TAIL
+_CARRY = 2 * C.ADD64  # the compare, and the carry shifted into hi
 _FOLD_FINAL = 3 * C.ADD64 + C.MUL64LO + C.CONDSUB + C.ADD64
-_XOR = NDIG - 1 + 1 + 2  # the 7 xors, e + 1 or e ^ 3, the pack
-_FAKE = NDIG  # e_j = lo ^ j
+_XOR = NDIG + 1 + C.ADD64
+_FAKE = NDIG  # e_j = v ^ j
 #: INT32 instructions of one transform on one polynomial
 OPS = {
     "full": C.N * (2 * _SPLIT + 2 * _FOLD59 + C.SHOUP + _FOLD_FINAL),
     "mxu": C.N * (2 * _SPLIT + 2 * _XOR),
     # two folds of fake accumulators, the Shoup product, lo32(y) ^ hi32(y)
-    "vpu": C.N * (2 * (_FAKE + _FOLD59_WIDE) + C.SHOUP + 2 + _FOLD_FINAL),
+    "vpu": C.N * (2 * (_FAKE + _FOLD59 + _CARRY) + C.SHOUP + 1 + _FOLD_FINAL),
 }
-# Table bytes per transform from the warp-block loops: the row product's
-# (R/16) x 8 blocks each read 8R/32 x 8 uint4 fragments per lane, the lane
-# product's (R/32) x 16 blocks 32 x 8 uint2; tw, tws, crow and ccol are
-# read once per word where the variant uses them.
-_FRAGS = (R // 16) * (LANES // 16) * (NDIG * R // 32) * NDIG * 32 * 16 \
-    + (R // 32) * (LANES // 8) * (NDIG * LANES // 32) * NDIG * 32 * 8
-_CONSTS = C.N * 8 * 4
-TABLE_BYTES = {"full": _FRAGS + _CONSTS, "mxu": _FRAGS, "vpu": _CONSTS}
+_STREAM = (NDIG * R // 32 + NDIG * NDIG) * ntt_mxu.TILE  # row stages, then lane stages
+_CONSTS = 2 * C.N * 8 + (R + LANES) * 8  # tw and tws, crow and ccol
+#: table bytes per polynomial per transform
+TABLE_BYTES = {"full": _STREAM + _CONSTS, "mxu": _STREAM, "vpu": _CONSTS}
+
+
+def kernel_name(variant: str) -> str:
+    """What the mangled name of the variant's kernel, mxu_parts_kernel<V>, holds."""
+    return f"mxu_parts_kernelILi{VARIANTS.index(variant)}E"
 
 
 def data(nb: int, device, seed: int = 0) -> torch.Tensor:
     """(nb, 8192) int64 words below q0 drawn as tools/probe_mxu_parts.py draws them."""
     a = np.random.default_rng(seed).integers(0, C.Q, size=(nb, C.N), dtype=np.uint64)
     return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def edge_data(nb: int, device) -> torch.Tensor:
+    """(nb, 8192) int64 at the ends of the folds' range: polynomial p random
+    below 2^63 - 1, all 0, all q0 - 1 or all 2^63 - 1 by p mod 4."""
+    x = np.random.default_rng(nb).integers(0, (1 << 63) - 1, size=(nb, C.N), dtype=np.int64)
+    x[1::4], x[2::4], x[3::4] = 0, C.Q - 1, (1 << 63) - 1
+    return torch.from_numpy(x).to(device)
 
 
 def _check_variant(variant: str) -> None:
@@ -180,11 +211,11 @@ def parts(x, variant: str, reps: int):
     C.check_operand(x, torch.int64, (x.shape[0], C.N), "x")
     if not dispatch.use_kernel(x):
         return parts_plain(x, variant, reps)
-    af, tf, tw, tws, crow, ccol, _ = ntt_mxu.fragment_tables(C.N, (C.Q,), (C.PSI,), False,
-                                                             x.device)
+    stream, tw, tws, crow, ccol, _ = ntt_mxu.kernel_tables(C.N, (C.Q,), (C.PSI,), False,
+                                                           x.device)
     y = torch.empty_like(x)
     err = _build.lib().aloha_probe_mxu_parts(
-        x.device.index, x.data_ptr(), y.data_ptr(), af.data_ptr(), tf.data_ptr(), tw.data_ptr(),
+        x.device.index, x.data_ptr(), y.data_ptr(), stream.data_ptr(), tw.data_ptr(),
         tws.data_ptr(), crow.data_ptr(), ccol.data_ptr(), C.Q, VARIANTS.index(variant),
         x.shape[0], reps, dispatch.stream_of(x))
     _build.check(err, "aloha_probe_mxu_parts")

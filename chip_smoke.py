@@ -15,7 +15,9 @@ Phases, each printing its own line; any failure exits nonzero:
      polynomial at n = 1-8192; ks_tail also a cluster of 4 at 8192); the
      lane kernel's and csrc/probe_ops.cu's 15 variants' registers, no
      spill, and in the SASS of probe_ops shared-memory accesses and
-     barriers in v6 alone;
+     barriers in v6 alone; the SASS of the parts probe's full and mxu
+     instances holds IGMMA and no IMMA or HMMA, vpu's none, and their
+     registers and spill;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -43,7 +45,9 @@ Phases, each printing its own line; any failure exits nonzero:
      ISA shape (M = 1, nb = 1) eager and in a CUDA-graph burst, also at
      one CTA a polynomial (C = 1 forced); the
      chain's marginal ns per polynomial per transform at nb = 256 (k = 1
-     against k = 9) beside its bound; then aloha_tpu_torch.bench.run at
+     against k = 9) beside its bound, and on the same line the parts
+     probe's full marginal (the same kernel code, folded every transform);
+     then aloha_tpu_torch.bench.run at
      N=8192, batch 256, the fused chain cut to k=64: each form's NTT/s,
      bit-exact against the ntt_np chain, with ntt, ntt_grid and both
      ntt_mxu wrappers launched;
@@ -101,7 +105,10 @@ Phases, each printing its own line; any failure exits nonzero:
      full-13 and probe_ops' v0 also in a graph burst), the lane probe in
      every mode on an edge sweep (nb = 1, 3, 133; 0, 1, 7, 14 and 26
      stages; 0 and 3 repetitions), probe_ops in every variant on one (nb =
-     1, 3, 133 and 264, past one wave at two CTAs an SM; 0-3 repetitions);
+     1, 3, 133 and 264, past one wave at two CTAs an SM; 0-3 repetitions),
+     the parts probe in every variant on one (nb = 1, 131, 132, 133 and
+     264, past one wave at one CTA an SM; 0-3 repetitions; polynomials of
+     0, q - 1 and 2^63 - 1 beside random ones);
      then the
      probes' own measurement at nb=256: the marginal ns per polynomial
      (block) per repetition of each, beside its bound (int8 MACs over the
@@ -191,7 +198,7 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
-    return ntt_registers(), ks_registers(), lane_registers(), ops_registers()
+    return ntt_registers(), ks_registers(), lane_registers(), ops_registers(), parts_registers()
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -300,6 +307,32 @@ def ops_registers() -> dict:
         if (v == "v6") != all(shared) or (v != "v6" and any(shared)):
             fail(f"probe_ops_kernel {v}: shared memory and barriers belong to v6 alone, "
                  f"SASS {c}")
+    return usage
+
+
+def parts_registers() -> dict:
+    """{variant: [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_mxu.cu's mxu_parts_kernel<V>, from ptxas' report; fails
+    unless the SASS of full and mxu holds IGMMA and no IMMA or HMMA and
+    vpu's none of them (the products are the transform's wgmma)."""
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes import probe_mxu_parts as P
+
+    usage, sass = {}, {}
+    for v in P.VARIANTS:
+        found = list(_build.ptxas_usage(P.kernel_name(v)).values())
+        if len(found) != 1:
+            fail(f"ptxas reported {len(found)} instances of {P.kernel_name(v)}, not 1")
+        usage[v] = list(found[0])
+        sass[v] = _build.sass_counts(P.kernel_name(v), P.SASS_OPS)
+    print("build: mxu_parts_kernel registers/spill stores/spill loads, SASS "
+          + "/".join(P.SASS_OPS) + ": "
+          + ", ".join(f"{v} {'/'.join(map(str, usage[v]))} "
+                      f"{'/'.join(str(sass[v][o]) for o in P.SASS_OPS)}" for v in P.VARIANTS),
+          flush=True)
+    for v, c in sass.items():
+        if bool(c["IGMMA"]) != (v != "vpu") or c["IMMA"] or c["HMMA"]:
+            fail(f"mxu_parts_kernel {v}: IGMMA in full and mxu alone, no IMMA or HMMA, SASS {c}")
     return usage
 
 
@@ -787,19 +820,25 @@ def chain_marginal(card: str, x, q: int, psi: int, results: dict):
     """The chain's marginal ns per polynomial per transform on x (nb =
     probes.common.NB_TIME polynomials): one launch of k transforms at the
     two lengths of MXU_MARGINAL_K (the least of the probes' bursts), beside
-    the bound of one transform (int8 MACs over the dense peak)."""
+    the bound of one transform (int8 MACs over the dense peak); and on the
+    same line the parts probe's full marginal on x (REPS 4 -> 12), the same
+    device code with the final fold on every transform."""
     from aloha_tpu_torch.ops import ntt_mxu
-    from aloha_tpu_torch.probes import common
+    from aloha_tpu_torch.probes import common, probe_mxu_parts
 
     ns, t_lo, t_hi, spread = common.marginal(lambda k: ntt_mxu.chain(x, q, psi, k, False),
                                              MXU_MARGINAL_K)
+    full_ns = common.marginal(lambda r: probe_mxu_parts.parts(x, "full", r),
+                              probe_mxu_parts.REPS)[0]
     bound_ns = mxu_work(1, 1)[1] / PEAK["int8"] * 1e9
     lo, hi = MXU_MARGINAL_K
     print(f"kernel ntt_mxu_chain marginal: {ns:.3f} ns per polynomial per transform "
           f"bound_ns={bound_ns:.3f} (operations) t(k={lo})={t_lo:.4f} ms t(k={hi})={t_hi:.4f} ms "
-          f"spread={spread:.4f} ms nb={x.shape[0]} on {card}", flush=True)
+          f"spread={spread:.4f} ms nb={x.shape[0]}; probe_mxu_parts full {full_ns:.3f} ns "
+          f"({full_ns / ns:.3f} x the chain) on {card}", flush=True)
     results.setdefault("marginal", {}).setdefault("ntt_mxu_chain", {})[
         f"k={lo}->{hi} nb={x.shape[0]}"] = (ns, bound_ns)
+    results["parts_full_vs_chain_ns"] = (full_ns, ns)
 
 
 def phase_serve(card: str, dev):
@@ -1433,11 +1472,13 @@ def rate_work(bp: int, reps: int):
 
 
 def parts_work(variant: str, nb: int, reps: int):
-    """One parts-probe launch: nb polynomials in and out, ntt_mxu.cu's
-    forward tables once, `reps` transforms of the variant."""
+    """One parts-probe launch: nb polynomials in and out, the tables the
+    variant reads (the stream and the constants of ntt_mxu.kernel_tables)
+    once, `reps` transforms of the variant."""
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.probes import probe_mxu_parts as P
 
-    nbytes = mxu_work(nb, 1)[0]
+    nbytes = 2 * nb * CFG.n * 8 + P.TABLE_BYTES[variant]
     ops = {"int32": P.OPS[variant] * nb * reps}
     if variant != "vpu":
         ops["int8"] = 2 * P.MACS * nb * reps
@@ -1497,6 +1538,7 @@ def phase_probes(card: str, dev, results: dict):
     """The eight step probes and the four copy pipelines: every variant and
     mode against its plain version, then the probes' own marginal timings
     (the main path)."""
+    import numpy as np
     import torch
 
     from aloha_tpu_torch.probes import (common, op_probe, probe_dynstage, probe_dynsub,
@@ -1613,6 +1655,23 @@ def phase_probes(card: str, dev, results: dict):
                       lambda: probe_mxu.digit_products(x, w, r),
                       lambda: probe_mxu.digit_products_plain(x, w, r))
         results.setdefault("probe_mxu", []).append((f"rate nb={bp} reps={r}", err))
+    # the parts probe's edge sweep: every variant past one wave at one CTA an
+    # SM, 0-3 repetitions, polynomials at the ends of the fold's range
+    t0, n_edge = time.perf_counter(), 0
+    for nb_e in probe_mxu_parts.EDGE_NBS:
+        xe = probe_mxu_parts.edge_data(nb_e, dev)
+        for v in probe_mxu_parts.VARIANTS:
+            for r in OPS_EDGE_REPS:
+                label = f"{v} nb={nb_e} reps={r}"
+                err = compare("probe_mxu_parts", label,
+                              lambda: probe_mxu_parts.parts(xe, v, r),
+                              lambda: probe_mxu_parts.parts_plain(xe, v, r))
+                results["probe_mxu_parts"].append((label, err))
+                n_edge += 1
+    del xe
+    print(f"probes: probe_mxu_parts edge sweep, {n_edge} cases equal (nb {probe_mxu_parts.EDGE_NBS}, reps "
+          f"{OPS_EDGE_REPS}, every variant) in {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
     # timed at a small shape (1 warm-up, 3 calls); the rate probe also at the
     # measured BP with one repetition, timed as its library call is (3
     # warm-ups, 15 calls, and in a graph burst)
@@ -1757,7 +1816,7 @@ def phase_probes(card: str, dev, results: dict):
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
               "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages",
-              "probe_ops"}
+              "probe_ops", "probe_mxu_parts"}
 
 
 def step2_order(kernels) -> list:
@@ -1789,7 +1848,8 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        registers, ks_registers_, lane_registers_, ops_registers_ = phase_build()
+        registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_ = (
+            phase_build())
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1889,6 +1949,9 @@ def main():
             entry["registers"] = lane_registers_
         if name == "probe_ops":
             entry["registers"] = ops_registers_
+        if name == "probe_mxu_parts":
+            entry["registers"] = parts_registers_
+            entry["full_vs_chain_ns"] = results["parts_full_vs_chain_ns"]
         if name in ("ks_head", "ks_tail"):
             entry["timing"] = results["ks_timing"][name]
             entry["registers"] = {k: v for k, v in ks_registers_.items()

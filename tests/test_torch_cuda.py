@@ -662,7 +662,8 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
     """csrc/probe_mxu.cu (the rate probe, the three parts variants) and
     csrc/probe_dyn.cu equal their plain versions at small shapes, REPS 1
     and 3, and at the measured shape (BP or nb = NB_TIME) at the lower
-    REPS; each launch counts once."""
+    REPS; the parts also at EDGE_NBS and 0-3 repetitions on `edge_data`
+    (words of 0, q - 1 and 2^63 - 1); each launch counts once."""
     big = probe_common.NB_TIME
     if kind == "rate":
         fn, plain, reps = probe_mxu.digit_products, probe_mxu.digit_products_plain, probe_mxu.REPS
@@ -684,13 +685,27 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
         inputs = lambda nb: (probe_dynstage.data(nb, dev),)  # noqa: E731
         shapes = ((1, 1), (3, 3))
     counter = probe_mxu_parts.parts if kind == "parts" else fn
-    for nb, r in shapes + ((big, reps[0]),):
-        args = inputs(nb)
+    cases = [(inputs, nb, r) for nb, r in shapes + ((big, reps[0]),)]
+    if kind == "parts":
+        edge = lambda nb: (probe_mxu_parts.edge_data(nb, dev),)  # noqa: E731
+        cases += [(edge, nb, r) for nb in probe_mxu_parts.EDGE_NBS for r in range(4)]
+    for make, nb, r in cases:
+        args = make(nb)
         before = counter.launches
         got = fn(*args, r)
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         assert torch.equal(got, plain(*args, r)), (nb, r)
+
+
+def test_probe_mxu_parts_compile_to_integer_warpgroup_products(dev):
+    """full and mxu hold IGMMA and no IMMA or HMMA in their SASS; vpu none."""
+    from aloha_tpu_torch import _build
+
+    for v in probe_mxu_parts.VARIANTS:
+        sass = _build.sass_counts(probe_mxu_parts.kernel_name(v), probe_mxu_parts.SASS_OPS)
+        assert bool(sass["IGMMA"]) == (v != "vpu") and not (sass["IMMA"] or sass["HMMA"]), (
+            v, sass)
 
 
 #: (BP, reps) of the wgmma rate kernel: one 64-row tile, a full 128-row tile,

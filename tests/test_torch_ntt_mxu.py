@@ -6,14 +6,17 @@ word-exact (integer arithmetic, tolerance 0):
   `_inv_tables_np` (planes converted back to u64);
 - `transform_plain` and `chain_plain` equal `ntt_np` and the JAX MXU kernel
   run in Pallas interpret mode, as tests/test_ntt_mxu_interpret.py runs it;
-- the fragment order of the parts probe's tables is the m16n8k32 s8
-  register layout of the PTX ISA;
 - csrc/ntt_mxu.cu's layouts, modelled in NumPy: the table stream read back
   through the wgmma descriptors' 128-byte swizzle rebuilds the tables, each
   split writes every digit byte once where the descriptors read it, the
   accumulator fragments cover each output once, and the whole data flow
   (splits, stream, descriptor offsets, the digit-at-a-time fold) equals the
   plain version at n = 4096 and 8192;
+- csrc/probe_mxu.cu's parts probe on that model at n = 8192: the XOR
+  epilogue equals `probe_mxu_parts`' mxu step, the fake accumulators folded
+  a digit at a time with the wide carry its vpu step, the fold with the
+  final fold on every repetition `chain_plain`, and its table bytes the
+  kernel operands each variant reads;
 - inputs >= q, bad moduli and bad ring degrees;
 - the bench refuses to run without CUDA, and names no form that is not
   bit-exact.
@@ -36,6 +39,7 @@ from aloha_tpu.config import DEFAULT_CONFIG
 from aloha_tpu.ops import ntt_mxu as jax_mxu
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch.ops import ntt_mxu
+from aloha_tpu_torch.probes import probe_mxu_parts
 
 pytest.importorskip("jax.experimental.pallas")
 
@@ -171,49 +175,10 @@ def test_cpu_tensors_take_the_plain_version():
         ntt_mxu.transform(x, (q, q), (psi, psi), False)
 
 
-def _ptx_a(frag):
-    """Rebuild (8, R, K) from A fragments by the PTX ISA's m16n8k32 .s8 table:
-    element i of lane (g, t) is byte i % 4 of register i // 4, at row
-    g + 8 ((i // 4) % 2) and column 4 t + (i % 4) + 16 (i >= 8)."""
-    nd, mtiles, ksteps = frag.shape[:3]
-    out = np.zeros((nd, 16 * mtiles, 32 * ksteps), dtype=np.int8)
-    regs = frag.reshape(nd, mtiles, ksteps, 32, 16)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        for i in range(16):
-            row = g + 8 * ((i // 4) % 2)
-            col = 4 * t + (i % 4) + (16 if i >= 8 else 0)
-            for mt in range(mtiles):
-                out[:, 16 * mt + row, col::32] = regs[:, mt, :, lane, i]
-    return out
-
-
-def _ptx_b(frag):
-    """Rebuild (8, K, 128) from B fragments: element i of lane (g, t) is
-    byte i % 4 of register i // 4, at row 4 t + (i % 4) + 16 (i >= 4),
-    column g."""
-    nd, ntiles, ksteps = frag.shape[:3]
-    out = np.zeros((nd, 32 * ksteps, 8 * ntiles), dtype=np.int8)
-    regs = frag.reshape(nd, ntiles, ksteps, 32, 8)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        for i in range(8):
-            row = 4 * t + (i % 4) + (16 if i >= 4 else 0)
-            for nt in range(ntiles):
-                out[:, row::32, 8 * nt + g] = regs[:, nt, :, lane, i]
-    return out
-
-
-def test_fragment_order_is_the_mma_register_layout():
-    tb = ntt_mxu.tables_np(DEFAULT_CONFIG.n, DEFAULT_CONFIG.moduli[0], DEFAULT_CONFIG.psi[0],
-                           False)
-    assert np.array_equal(_ptx_a(ntt_mxu.frag_rows(tb.row)), tb.row)
-    assert np.array_equal(_ptx_b(ntt_mxu.frag_lanes(tb.lane)), tb.lane)
-
-
 # ------------------------------------------ csrc/ntt_mxu.cu's layouts, modelled
 KBLOCK = 128 * 128  # a 128-row k-block of 128 bytes (the rows product's A)
 MASK59 = np.uint64((1 << 59) - 1)
+M32 = np.uint64(0xFFFFFFFF)
 
 
 def _ring(n, limb, inverse):
@@ -336,18 +301,42 @@ def test_accumulator_fragments_cover_each_output_once():
         assert len(seen) == 128 * R
 
 
-def _kernel_step(words, tb, stream, s, rows, mid, fin, q):
+def _tail(lo, hi, c, q):
+    """fold59's tail (csrc/mxu_core.cuh): W from the digit sums (lo, hi) and c."""
+    qq, delta = np.uint64(q), np.uint64(q - (1 << 59))
+    v1 = lo + (hi << np.uint64(40))
+    v2 = v1 + c
+    vhi = (hi >> np.uint64(24)) + (v1 < lo) + (v2 < v1)
+    return (v2 & MASK59) + np.uint64(20) * qq - ((vhi << np.uint64(5)) | (v2 >> np.uint64(59))) * delta
+
+
+def _finish(w, tw, tws, mid, fin, q):
+    """finish<MID>: the Shoup twiddle (tw, tws at w's words), or the final fold when fin."""
+    if mid:
+        wo, two, tso = (a.astype(object) for a in (w, tw, tws))
+        return ((wo * two - ((wo * tso) >> 64) * q) % (1 << 64)).astype(np.uint64)
+    if fin:
+        qq, delta = np.uint64(q), np.uint64(q - (1 << 59))
+        w = (w & MASK59) + qq - (w >> np.uint64(59)) * delta
+        w = np.where(w >= qq, w - qq, w)
+    return w
+
+
+def _kernel_step(words, tb, stream, s, rows, mid, fin, q, epi="fold"):
     """One product step as the kernel runs it: the split, the wgmma k32 steps
     through the descriptors at the kernel's offsets (rows: A the planes'
     k-block p KB + kb, B the slot's k-block kb; lanes: A the slot, B the
-    planes' k-block p), fold59 a digit at a time into (lo, hi), its tail,
-    then finish.  Returns (words, next stage)."""
+    planes' k-block p), then the epilogue: "fold", fold59 a digit at a time
+    into (lo, hi), its tail, then finish; "xor", the parts probe's, x ^= e_j
+    as each digit completes and u32(x) | u32(x + 1 or x ^ 3) << 32.
+    Returns (words, next stage)."""
     R = words.shape[0]
     parts, kbs = (R // 32, 2) if rows else (8, 1)
     b = ntt_mxu.bias_bits(8 * R if rows else 1024)
     planes = (_split_rows if rows else _split_lanes)(words)[0]
     lo = np.zeros((128, R), dtype=np.uint64)
     hi = np.zeros((128, R), dtype=np.uint64)
+    x = np.zeros((128, R), dtype=np.uint64)
     for j in range(8):
         acc = np.zeros((128, R), dtype=np.int64)
         for p in range(parts):
@@ -362,25 +351,20 @@ def _kernel_step(words, tb, stream, s, rows, mid, fin, q):
                         a = _read(tile, 32 * kc, 128)
                         bt = _read(planes, p * R * 128 + 32 * kc, R)
                     acc += a @ bt.T
+        if epi == "xor":
+            x ^= (acc & 0xFFFFFFFF).astype(np.uint64)
+            continue
         u = (acc + (1 << b)).astype(np.uint64)
         if j < 5:
             lo += u << np.uint64(8 * j)
         else:
             hi += u << np.uint64(8 * (j - 5))
+    if epi == "xor":
+        top = (x + np.uint64(1)) & M32 if rows else x ^ np.uint64(3)
+        return (x | (top << np.uint64(32))).T, s
     c = (tb.crow[None, :] if rows else tb.ccol[:, None]).astype(np.uint64)
-    qq, delta = np.uint64(q), np.uint64(q - (1 << 59))
-    v1 = lo + (hi << np.uint64(40))
-    v2 = v1 + c
-    vhi = (hi >> np.uint64(24)) + (v1 < lo) + (v2 < v1)
-    w = (v2 & MASK59) + np.uint64(20) * qq - ((vhi << np.uint64(5)) | (v2 >> np.uint64(59))) * delta
-    w = w.T  # word i 128 + m
-    if mid:
-        wo, tw, tws = (a.astype(object) for a in (w, tb.tw, tb.tws))
-        w = ((wo * tw - ((wo * tws) >> 64) * q) % (1 << 64)).astype(np.uint64)
-    elif fin:
-        w = (w & MASK59) + qq - (w >> np.uint64(59)) * delta
-        w = np.where(w >= qq, w - qq, w)
-    return w, s
+    w = _tail(lo, hi, c, q).T  # word i 128 + m
+    return _finish(w, tb.tw, tb.tws, mid, fin, q), s
 
 
 def _kernel_model(words, tb, stream, q, k, inverse):
@@ -413,6 +397,129 @@ def test_kernel_model_equals_plain(n, inverse):
         got = _kernel_model(words, tb, stream, q, k, inverse).reshape(1, n)
         want = ntt_mxu.chain_plain(x, q, root, k, inverse)
         assert np.array_equal(got, cv.to_u64(want)), k
+
+
+# ------------------------- csrc/probe_mxu.cu's parts probe on the same model
+def _parts_model(words, tb, stream, q, reps, epi):
+    """The parts kernel's full ("fold") or mxu ("xor") variant on one
+    polynomial (R, 128) u64: each repetition the rows with the twiddle, then
+    the lanes, the final fold on every repetition, the stream's stage g
+    running on across repetitions."""
+    s = 0
+    for _ in range(reps):
+        for rows, mid in ((True, True), (False, False)):
+            words, s = _kernel_step(words, tb, stream, s, rows, mid, True, q, epi)
+    assert s == reps * stream.shape[0]
+    return words
+
+
+def _parts_input(q):
+    """(64, 128) u64: random words below 2^63 and the fold's range ends."""
+    words = np.random.default_rng(18).integers(0, 1 << 63, size=(64, 128), dtype=np.uint64)
+    words[0, :4] = (0, q - 1, (1 << 63) - 1, (1 << 64) - 1)
+    return words
+
+
+def _port(words):
+    return torch.from_numpy(words.reshape(1, -1).view(np.int64))
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_parts_fold_every_repetition_equals_chain_plain(reps):
+    """full: the transform with fin on every repetition is canonical each
+    time, so its words are chain_plain's."""
+    q, root, tb = _ring(8192, 0, False)
+    words = _parts_input(q)
+    got = _parts_model(words, tb, ntt_mxu.table_stream(tb, False), q, reps, "fold")
+    want = ntt_mxu.chain_plain(_port(words), q, root, reps, False)
+    assert np.array_equal(got.reshape(1, -1), cv.to_u64(want))
+    assert int(got.max()) < q
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_parts_xor_epilogue_equals_the_mxu_step(reps):
+    """mxu: the XOR epilogue, a digit at a time through the rows then the
+    lanes, gives probe_mxu_parts' mxu words (its _mxu_step, reps times)."""
+    q, _, tb = _ring(8192, 0, False)
+    words = _parts_input(q)
+    got = _parts_model(words, tb, ntt_mxu.table_stream(tb, False), q, reps, "xor")
+    want = probe_mxu_parts.parts_plain(_port(words), "mxu", reps)
+    assert np.array_equal(got.reshape(1, -1), cv.to_u64(want))
+
+
+def _places():
+    """(256, 32): the word of accumulator o of thread tid at R = 64
+    (csrc/mxu_core.cuh's Places), a permutation of the 8192 words."""
+    tid, o = np.arange(256)[:, None], np.arange(32)[None, :]
+    wg, w, lane = tid // 128, (tid >> 5) & 3, tid & 31
+    m = 64 * wg + 16 * w + (lane >> 2) + 8 * ((o >> 1) & 1)
+    i = 8 * (o >> 2) + 2 * (lane & 3) + (o & 1)
+    return i * 128 + m
+
+
+def _vpu_epilogue(words, tb, q, rows):
+    """vpu_step: each thread's 32 words at its places, e_j = v ^ j (v =
+    lo32(x), or lo32(x) ^ hi32(x) for the lanes) folded a digit at a time,
+    lo's carry past 2^64 at j = 4 put into hi as 2^24, fold59's tail with
+    crow[i] or ccol[m], then the Shoup twiddle (rows) or the final fold.
+    Returns (words, the number of words that carried)."""
+    idx = _places()
+    x = words.reshape(-1)[idx]
+    v = x & M32 if rows else (x ^ (x >> np.uint64(32))) & M32
+    b = ntt_mxu.bias_bits(8 * 64 if rows else 1024)
+    lo, hi = np.zeros_like(x), np.zeros_like(x)
+    for j in range(8):
+        u = ((v ^ np.uint64(j)) + np.uint64(1 << b)) & M32
+        if j < 4:
+            lo += u << np.uint64(8 * j)
+        elif j == 4:
+            t = lo + (u << np.uint64(32))
+            carry = t < lo
+            hi = carry.astype(np.uint64) << np.uint64(24)
+            lo = t
+        else:
+            hi += u << np.uint64(8 * (j - 5))
+    c = tb.crow[idx // 128] if rows else tb.ccol[idx % 128]
+    w = _finish(_tail(lo, hi, c, q), tb.tw.reshape(-1)[idx], tb.tws.reshape(-1)[idx], rows,
+                True, q)
+    out = words.reshape(-1).copy()
+    out[idx] = w
+    return out.reshape(words.shape), int(carry.sum())
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_parts_fake_accumulators_equal_the_vpu_step(reps):
+    """vpu: the digit-at-a-time fold with the wide carry gives
+    probe_mxu_parts' vpu words (its _vpu_step, reps times), on words whose
+    lo4 + (u_4 << 32) carries out of 64 bits in the row epilogue (lo32 =
+    2^32 - 2^23 - 8: u_j = 2^32 - 8 + j) and random words, which carry in
+    the lane epilogue too."""
+    q, _, tb = _ring(8192, 0, False)
+    assert sorted(_places().reshape(-1)) == list(range(8192))
+    words = _parts_input(q)
+    words[1, :] = (words[1, :] & ~M32) | np.uint64((1 << 32) - (1 << 23) - 8)
+    got, carried = words, []
+    for _ in range(reps):
+        for rows in (True, False):
+            got, n = _vpu_epilogue(got, tb, q, rows)
+            carried.append(n)
+    assert carried[0] >= 128 and all(carried), carried
+    want = probe_mxu_parts.parts_plain(_port(words), "vpu", reps)
+    assert np.array_equal(got.reshape(1, -1), cv.to_u64(want))
+
+
+@pytest.mark.parametrize("variant", probe_mxu_parts.VARIANTS)
+def test_parts_table_bytes_are_the_kernel_operands(variant):
+    """TABLE_BYTES: the bytes of kernel_tables' forward stream of q0 (80
+    stages of 16 KiB, a row stage filling its slot at R = 64) and of the
+    constants each variant reads."""
+    q, psi = DEFAULT_CONFIG.moduli[0], DEFAULT_CONFIG.psi[0]
+    stream, tw, tws, crow, ccol, _ = ntt_mxu.kernel_tables(8192, (q,), (psi,), False, CPU)
+    assert stream.numel() == 80 * ntt_mxu.TILE
+    reads = {"full": (stream, tw, tws, crow, ccol), "mxu": (stream,),
+             "vpu": (tw, tws, crow, ccol)}[variant]
+    assert probe_mxu_parts.TABLE_BYTES[variant] == sum(t.numel() * t.element_size()
+                                                       for t in reads)
 
 
 def test_bench_without_cuda_exits_nonzero():
