@@ -1,4 +1,4 @@
-// In-kernel modular arithmetic and the shared-memory NTT, on native u64.
+// In-kernel modular arithmetic on native u64.
 //
 // Replaces the TPU kernels' u32-pair helpers: ntt_pallas._shoup_mul /
 // _condsub / _halfq and the CT/GS butterflies (aloha_tpu/ops/
@@ -88,58 +88,4 @@ __device__ __forceinline__ u64 barrett(u64 a, u64 b, u64 q, u64 iq, int w) {
   u64 mask = (1ull << (w + 1)) - 1;
   u64 diff = (((lo & mask) | (1ull << (w + 1))) - ((ms * q) & mask)) & mask;
   return condsub(diff, q);
-}
-
-// The stage loops ntt_smem and intt_smem: one shared-memory round trip and
-// one barrier a stage.  No kernel of a user's path runs them any more
-// (csrc/ntt.cu and csrc/ks.cu run csrc/ntt_regs.cuh's register passes):
-// ntt_smem serves only csrc/probe_stages.cu, the ports of
-// tools/stream_prof.py and stream_prof3.py (PERF.md §6 rows 11 and 13),
-// and intt_smem stays as its inverse.
-//
-// Forward negacyclic NTT of the n = 2^logn values in shared memory a[]:
-// natural order in (entries < 4q), bit-reversed order out, canonical.
-// Cooley-Tukey with Harvey's lazy butterflies: values ride in [0, 4q)
-// between stages; stage s, group k uses twiddle w[2^s + k].
-__device__ __forceinline__ void ntt_smem(u64* a, int logn, const u64* __restrict__ w,
-                                         const u64* __restrict__ ws, u64 q) {
-  const int n = 1 << logn;
-  const u64 q2 = 2 * q;
-  for (int s = 0; s < logn; ++s) {
-    const int sh = logn - 1 - s;  // log2 of the butterfly distance t
-    const int t = 1 << sh;
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int k = b >> sh;
-      const int i = (k << (sh + 1)) + (b & (t - 1));
-      const u64 tw = w[(1 << s) + k], tws = ws[(1 << s) + k];
-      const u64 x = condsub(a[i], q2);
-      const u64 y = shoup_mul(a[i + t], tw, tws, q);
-      a[i] = x + y;
-      a[i + t] = x + q2 - y;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = condsub(condsub(a[i], q2), q);
-  __syncthreads();
-}
-
-// Inverse negacyclic NTT in shared memory: bit-reversed order in
-// (canonical), natural order out, canonical.  Gentleman-Sande with the
-// n^-1 scale folded in as a halving at every stage (reference:
-// src/vp/vxu/modalu.sv GS_VVS path); stage s, group k uses w[n/2^(s+1) + k].
-__device__ __forceinline__ void intt_smem(u64* a, int logn, const u64* __restrict__ w,
-                                          const u64* __restrict__ ws, u64 q) {
-  const int n = 1 << logn;
-  for (int s = 0; s < logn; ++s) {
-    const int t = 1 << s;
-    const int h = n >> (s + 1);
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int k = b >> s;
-      const int i = (k << (s + 1)) + (b & (t - 1));
-      const u64 u = a[i], v = a[i + t];
-      a[i] = halfmod(addmod(u, v, q), q);
-      a[i + t] = halfmod(condsub(shoup_mul(u + q - v, w[h + k], ws[h + k], q), q), q);
-    }
-    __syncthreads();
-  }
 }

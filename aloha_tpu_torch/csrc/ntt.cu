@@ -18,10 +18,11 @@
 //
 // Bound on Hopper: integer issue (two 64-bit multiplies, about 36 INT32
 // instructions, per butterfly), not HBM (16 bytes per coefficient in and
-// out).  Stage by stage through shared memory (ntt_smem, which now serves
-// only the probes of csrc/probe_stages.cu), a forward transform spent about a third of its time on the
-// 13 shared-memory round trips and barriers, a fifth on a (w, ws) load per
-// butterfly and a twentieth on runtime butterfly distances.  Here a
+// out).  Stage by stage through shared memory (the loop this kernel ran
+// until it moved to register passes), a forward transform spent about a
+// third of its time on the 13 shared-memory round trips and barriers, a
+// fifth on a (w, ws) load per butterfly and a twentieth on runtime
+// butterfly distances.  Here a
 // transform at n = 8192 makes 4 passes with 3 exchanges and 3 barriers,
 // loads each twiddle pair once per thread and pass, and every distance,
 // register pairing and table offset is a compile-time constant of the

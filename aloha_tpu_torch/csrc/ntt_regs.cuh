@@ -10,7 +10,8 @@
 // under n = 64.  Forward pass p runs the stages whose butterfly bits are
 // TOP(p) = LOGN-1-LOGR p down to BOT(p) = max(0, TOP(p)-LOGR+1); the last
 // pass may run fewer than LOGR stages.  At n = 8192: 4 + 4 + 4 + 1 stages,
-// 4 passes, 3 exchanges, where ntt_smem makes 13 round trips.
+// 4 passes, 3 exchanges, where a stage-by-stage loop in shared memory
+// makes 13 round trips.
 //
 // Owner map of forward pass p: register bit b holds index bit BOT + b for
 // the pass's own bits, then, for a short pass's extras, the top index bits
@@ -55,9 +56,9 @@
 // butterflies of a stage share 2^(bits above b in the pass) pairs, each
 // loaded once, just before its stage.
 //
-// Windows as in ntt_smem/intt_smem: forward values ride in Harvey's
-// [0, 4q) and are reduced once, at the last store; the inverse reduces its
-// input (< 2q) once at the load and stays canonical through the halvings.
+// Windows: forward values ride in Harvey's [0, 4q) and are reduced once,
+// at the last pass; the inverse reduces its input (< 2q) once at the load
+// and stays canonical through the halvings.
 #pragma once
 
 #include "modarith.cuh"

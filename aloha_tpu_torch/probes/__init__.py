@@ -1,13 +1,15 @@
 """Cost probes on the card: the port of the `tools/` scripts that probe the TPU kernels.
 
 The step probes run REPS data-dependent repetitions of one step of a
-kernel on data held in shared memory and report the marginal time per
-polynomial (or block) per repetition (`common.marginal`):
+kernel on resident data (in registers or shared memory) and report the
+marginal time per polynomial (or block) per repetition (`common.marginal`):
 
 - `op_probe`: the building blocks, 15 variants (tools/op_probe.py);
-- `stream_prof3`: whole forward transforms (tools/stream_prof3.py);
+- `stream_prof3`: whole forward transforms, csrc/ntt.cu's own
+  (tools/stream_prof3.py);
 - `stream_prof`: the 13-stage loop, full / exchange-and-add / no exchange
-  (tools/stream_prof.py);
+  (tools/stream_prof.py); `stage_modes_timing` times its three modes beside
+  csrc/ntt.cu's forward marginal, also on another checkout;
 - `stream_prof2`: lane stages, full / fixed table row / fixed distance /
   no butterfly (tools/stream_prof2.py);
 - `probe_mxu`, `probe_mxu_parts`: the int8 tensor-core rate and the split

@@ -6,14 +6,16 @@ Replaces the TPU kernel of tools/stream_prof3.py:29 (`make(reps)` ->
 `body`: REPS forward transforms of resident planes by the streaming stage
 loops, no DMA) with the `full` mode of `aloha_probe_stage_modes` in
 `csrc/probe_stages.cu` (the kernel of `stream_prof.stage_modes`):
-`ntt_smem` (csrc/modarith.cuh: the stage loop, 13 shared-memory round
-trips, which no kernel of a user's path runs any more: csrc/ntt.cu and
-csrc/ks.cu run csrc/ntt_regs.cuh's register passes), REPS times on nb polynomials held in shared
-memory, one load and one store.  The marginal over REPS 20 and 120 (the
-TPU script's) at nb = 256 is the time of one such transform without the
-launch, loads and stores.
+`csrc/ntt.cu`'s transform itself (`ntt_regs::run`: 4 register passes of
+16 words a thread), REPS times on nb polynomials held in registers,
+chained through one shared buffer (4 exchanges a transform), one load
+and one store.  The marginal over REPS 20 and 120 (the TPU script's) at
+nb = 256 is the time of one such transform without the launch, loads and
+stores.
 
-Bound on the H100: integer issue, `OPS` INT32 instructions per transform.
+Bound on the H100: integer issue, `NEEDED_OPS` INT32 instructions per
+transform (`OPS`, frozen, is the stage loop's count with an index per
+butterfly).
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ from aloha_tpu_torch.probes import common as C
 
 REPS = (20, 120)
 #: INT32 instructions of one transform on one polynomial: 13 stages of
-#: butterflies, then two conditional subtracts per word
+#: butterflies, then two conditional subtracts per word (frozen: each
+#: butterfly with the stage loop's index arithmetic)
 OPS = C.N // 2 * C.LOGN * C.CT_BUTTERFLY + C.N * 2 * C.CONDSUB
+#: the same without the per-butterfly index, which the register passes do
+#: not compute: 30 INT32 a butterfly
+NEEDED_OPS = C.N // 2 * C.LOGN * (C.CT_BUTTERFLY - C.INDEX) + C.N * 2 * C.CONDSUB
 _FULL = 0  # the stage-modes entry's mode of the forward transform (stream_prof.MODES)
 
 
@@ -67,7 +73,8 @@ def main(argv=None):
     card = C.require_card()
     ns, t_lo, t_hi = measure(torch.device("cuda", 0))
     print(f"nb={C.NB_TIME} compute-only: {ns / 1e3:.4f} us/poly ({ns:.1f} ns) "
-          f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms ops/poly={OPS} on {card}",
+          f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms ops/poly={NEEDED_OPS} "
+          f"(frozen count {OPS}) on {card}",
           flush=True)
 
 

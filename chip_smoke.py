@@ -17,7 +17,9 @@ Phases, each printing its own line; any failure exits nonzero:
      spill, and in the SASS of probe_ops shared-memory accesses and
      barriers in v6 alone; the SASS of the parts probe's full and mxu
      instances holds IGMMA and no IMMA or HMMA, vpu's none, and their
-     registers and spill;
+     registers and spill; the registers and spill of the stage-modes
+     kernel's three instances beside ntt.cu's forward transform at n = 8192
+     (ntt_regs_kernel<13, false, 1>), whose register passes they run;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -43,7 +45,9 @@ Phases, each printing its own line; any failure exits nonzero:
      ntt kernel's marginal ns per polynomial over the batch (nb = 256 ->
      1024), both directions, beside the bound of one transform, and its
      ISA shape (M = 1, nb = 1) eager and in a CUDA-graph burst, also at
-     one CTA a polynomial (C = 1 forced); the
+     one CTA a polynomial (C = 1 forced), and beside the forward marginal
+     the stage-modes probe's full marginal (the same transform, chained in
+     one launch) with their ratio; the
      chain's marginal ns per polynomial per transform at nb = 256 (k = 1
      against k = 9) beside its bound, and on the same line the parts
      probe's full marginal (the same kernel code, folded every transform);
@@ -108,12 +112,16 @@ Phases, each printing its own line; any failure exits nonzero:
      1, 3, 133 and 264, past one wave at two CTAs an SM; 0-3 repetitions),
      the parts probe in every variant on one (nb = 1, 131, 132, 133 and
      264, past one wave at one CTA an SM; 0-3 repetitions; polynomials of
-     0, q - 1 and 2^63 - 1 beside random ones);
+     0, q - 1 and 2^63 - 1 beside random ones), the forward transforms and
+     the stage modes on one (nb = 1, 3, 133 and 264, 0-3 repetitions, and
+     nb = 3 on the edge words 0, q - 1, 2q and 4q - 1);
      then the
      probes' own measurement at nb=256: the marginal ns per polynomial
      (block) per repetition of each, beside its bound (int8 MACs over the
      tensor-core peak, INT32 instructions over the integer issue peak, the
-     larger), with all eight kernels launched.  Then the four copy pipelines (csrc/probe_dma.cu:
+     larger; the stage modes' count is the work the function needs,
+     NEEDED_OPS, beside the frozen OPS), with all eight kernels launched.
+     Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
      row-pair swap, the table read, 4 and 7 NTT lane stages) against their
      plain versions at the scripts' batches (16 or 32), at nb=133 and at
@@ -198,7 +206,9 @@ def phase_build():
         print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
         if not sass["IGMMA"] or sass["IMMA"]:
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
-    return ntt_registers(), ks_registers(), lane_registers(), ops_registers(), parts_registers()
+    registers = ntt_registers()
+    return (registers, ks_registers(), lane_registers(), ops_registers(), parts_registers(),
+            stage_registers(registers))
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -271,6 +281,29 @@ def lane_registers() -> dict:
           + ", ".join(f"{m} {'/'.join(map(str, v))}" for m, v in usage.items()), flush=True)
     if sorted(usage) != sorted(stream_prof2.MODES) or any(v[1] or v[2] for v in usage.values()):
         fail(f"lane_stages_kernel: one instance a mode and no spill expected, ptxas: {usage}")
+    return usage
+
+
+def stage_registers(ntt_usage: dict) -> dict:
+    """{mode: [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_stages.cu's stage_modes_kernel<mode>, from ptxas' report,
+    printed beside ntt.cu's forward transform at n = 8192 (one CTA a
+    polynomial), whose passes full runs; a spill is reported, not failed."""
+    import re
+
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes import stream_prof
+
+    usage = {}
+    for name, use in _build.ptxas_usage("stage_modes_kernel").items():
+        mode = re.search(r"stage_modes_kernelILi(\d)E", name)
+        usage[stream_prof.MODES[int(mode.group(1))]] = list(use)
+    if sorted(usage) != sorted(stream_prof.MODES):
+        fail(f"stage_modes_kernel: one instance a mode expected, ptxas: {usage}")
+    ntt = ntt_usage["fwd n=2^13 C=1"]
+    print("build: stage_modes_kernel registers/spill stores/spill loads: "
+          + ", ".join(f"{m} {'/'.join(map(str, usage[m]))}" for m in stream_prof.MODES)
+          + f"; beside ntt_regs_kernel<13, false, 1> {'/'.join(map(str, ntt))}", flush=True)
     return usage
 
 
@@ -775,7 +808,7 @@ def ntt_timing(card: str, dev, results: dict):
     from aloha_tpu_torch import ntt_torch
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ntt_stream
-    from aloha_tpu_torch.probes import common
+    from aloha_tpu_torch.probes import common, stream_prof3
 
     n, q = CFG.n, CFG.moduli[0]
     x = cv.from_u64(np.random.default_rng(1).integers(0, q, size=(1, NTT_MARGINAL_NB[1], n),
@@ -793,6 +826,13 @@ def ntt_timing(card: str, dev, results: dict):
               f"spread={spread:.4f} ms on {card}", flush=True)
         results.setdefault("marginal", {}).setdefault("ntt", {})[
             f"{name} q0 nb={lo}->{hi}"] = (ns, bound_ns)
+        if not inv:
+            full_ns = stream_prof3.measure(dev)[0]
+            print(f"kernel ntt marginal fwd beside probe_fwd_reps full: {full_ns:.3f} ns per "
+                  f"transform (REPS {stream_prof3.REPS[0]} -> {stream_prof3.REPS[1]}, nb="
+                  f"{common.NB_TIME}) against {ns:.3f} ns per polynomial: {full_ns / ns:.3f} x "
+                  f"on {card}", flush=True)
+            results["fwd_reps_vs_ntt_ns"] = (full_ns, ns)
         label = f"{name} q0 (1, 1, {n}) isa"
         run = lambda: ntt_stream.transform(views[1], (q,), (root,), inv)  # noqa: E731
         check(results, card, "ntt", label, run,
@@ -1557,10 +1597,11 @@ def phase_probes(card: str, dev, results: dict):
               lambda x, r, v=v: op_probe.probe_ops_plain(x, v, r), op_probe.OPS[v],
               op_probe.REPS, op_probe.TABLE_BYTES[v]) for v in op_probe.VARIANTS]
     cases.append(("probe_fwd_reps", "fwd", stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain,
-                  stream_prof3.OPS, stream_prof3.REPS, all_rows))
+                  stream_prof3.NEEDED_OPS, stream_prof3.REPS, all_rows))
     cases += [("probe_stage_modes", m, lambda x, r, m=m: stream_prof.stage_modes(x, m, r),
-               lambda x, r, m=m: stream_prof.stage_modes_plain(x, m, r), stream_prof.OPS[m],
-               stream_prof.REPS, 0 if m == "rollsonly" else all_rows) for m in stream_prof.MODES]
+               lambda x, r, m=m: stream_prof.stage_modes_plain(x, m, r),
+               stream_prof.NEEDED_OPS[m], stream_prof.REPS, 0 if m == "rollsonly" else all_rows)
+              for m in stream_prof.MODES]
     for case in stream_prof2.CASES:
         m, k = stream_prof2.parse(case)
         cases.append(("probe_lane_stages", case,
@@ -1617,6 +1658,25 @@ def phase_probes(card: str, dev, results: dict):
     print(f"probes: probe_ops edge sweep, {n_edge} cases equal (nb {OPS_EDGE_NBS}, reps "
           f"{OPS_EDGE_REPS}, every variant) in {time.perf_counter() - t0:.1f} s on {card}",
           flush=True)
+    # the forward transforms' and the stage modes' edge sweep: the same
+    # batches and repetitions, and nb = 3 on the edge words of [0, 4q)
+    t0, n_edge = time.perf_counter(), 0
+    stage_cases = [("probe_fwd_reps", "fwd", stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain)]
+    stage_cases += [("probe_stage_modes", m, lambda x, r, m=m: stream_prof.stage_modes(x, m, r),
+                     lambda x, r, m=m: stream_prof.stage_modes_plain(x, m, r))
+                    for m in stream_prof.MODES]
+    inputs = [(f"nb={b}", common.resident_data(b, dev, seed=b)) for b in OPS_EDGE_NBS]
+    inputs.append(("edge words nb=3", stream_prof.edge_data(3, dev)))
+    for tag, xe in inputs:
+        for kernel, mode, run, plain in stage_cases:
+            for r in OPS_EDGE_REPS:
+                label = f"{mode} {tag} reps={r}"
+                err = compare(kernel, label, lambda: run(xe, r), lambda: plain(xe, r))
+                results[kernel].append((label, err))
+                n_edge += 1
+    print(f"probes: probe_fwd_reps and probe_stage_modes edge sweep, {n_edge} cases equal (nb "
+          f"{OPS_EDGE_NBS} and the edge words, reps {OPS_EDGE_REPS}, every mode) in "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
     # the tensor-core and runtime-stage probes: (kernel, label, inputs(nb),
     # wrapper(*inputs, reps), plain(*inputs, reps), work(nb, reps), REPS)
@@ -1744,8 +1804,9 @@ def phase_probes(card: str, dev, results: dict):
         "probe_ops": [(v, ns, lo, hi, None, op_probe.REPS, int32_ns(op_probe.OPS[v]))
                       for v, ns, lo, hi in op_probe.measure(op_probe.VARIANTS, dev)],
         "probe_fwd_reps": [("fwd", *stream_prof3.measure(dev), None, stream_prof3.REPS,
-                            int32_ns(stream_prof3.OPS))],
-        "probe_stage_modes": [(m, ns, lo, hi, None, stream_prof.REPS, int32_ns(stream_prof.OPS[m]))
+                            int32_ns(stream_prof3.NEEDED_OPS))],
+        "probe_stage_modes": [(m, ns, lo, hi, None, stream_prof.REPS,
+                               int32_ns(stream_prof.NEEDED_OPS[m]))
                               for m, ns, lo, hi in stream_prof.measure(stream_prof.MODES, dev)],
         "probe_lane_stages": [(c, ns, lo, hi, None, stream_prof2.REPS,
                                int32_ns(stream_prof2.ops(*stream_prof2.parse(c))))
@@ -1797,6 +1858,11 @@ def phase_probes(card: str, dev, results: dict):
             if kernel == "probe_mxu_parts":
                 tb = probe_mxu_parts.TABLE_BYTES[label]
                 extra += f" table_bytes={tb} ({per_ns(tb):.1f} GB/s through L2)"
+            if kernel in ("probe_fwd_reps", "probe_stage_modes"):
+                frozen = stream_prof3.OPS if label == "fwd" else stream_prof.OPS[label]
+                extra += f" (NEEDED_OPS; the frozen OPS: bound_ns={int32_ns(frozen):.3f})"
+                results.setdefault("ops_bound_ns", {}).setdefault(kernel, {})[label] = (
+                    int32_ns(frozen))
             print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
                   f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
                   f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME}{extra} on {card}", flush=True)
@@ -1816,7 +1882,7 @@ def phase_probes(card: str, dev, results: dict):
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
               "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages",
-              "probe_ops", "probe_mxu_parts"}
+              "probe_ops", "probe_mxu_parts", "probe_fwd_reps", "probe_stage_modes"}
 
 
 def step2_order(kernels) -> list:
@@ -1848,8 +1914,8 @@ def main():
         print(f"bounds: HBM {HBM_BYTES_PER_S:.3g} B/s, int8 {PEAK['int8']:.4g} op/s, "
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
-        registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_ = (
-            phase_build())
+        (registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_,
+         stage_registers_) = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -1952,6 +2018,12 @@ def main():
         if name == "probe_mxu_parts":
             entry["registers"] = parts_registers_
             entry["full_vs_chain_ns"] = results["parts_full_vs_chain_ns"]
+        if name in ("probe_fwd_reps", "probe_stage_modes"):
+            entry["registers"] = ({"full": stage_registers_["full"]} if name == "probe_fwd_reps"
+                                  else stage_registers_)
+            entry["ops_bound_ns"] = results["ops_bound_ns"][name]
+        if name == "probe_fwd_reps":
+            entry["full_vs_ntt_ns"] = results["fwd_reps_vs_ntt_ns"]
         if name in ("ks_head", "ks_tail"):
             entry["timing"] = results["ks_timing"][name]
             entry["registers"] = {k: v for k, v in ks_registers_.items()

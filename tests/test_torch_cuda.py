@@ -628,9 +628,10 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
     variant and mode equals its plain version at nb = 8, REPS 1 and 3, and
     at the measured shape (nb = NB_TIME) at the module's lower REPS; the
     lane kernel also at nb = 1, 3 and 133 with 0 and 3 repetitions, at the
-    measured stage counts and LANE_EDGE_NSTAGES; the building-block kernel
-    also at nb = 1, 3, 133 and 264 (past one wave at two CTAs an SM) with
-    0, 1 and 2 repetitions."""
+    measured stage counts and LANE_EDGE_NSTAGES; the building-block and
+    stage-modes kernels also at nb = 1, 3, 133 and 264 (past one wave at
+    two CTAs an SM) with 0, 1 and 2 repetitions, the stage modes also on
+    the edge words 0, q - 1, 2q and 4q - 1 (`stream_prof.edge_data`)."""
     fn, plain, args, timed_reps = {
         "ops": (op_probe.probe_ops, op_probe.probe_ops_plain, (mode,), op_probe.REPS),
         "fwd_reps": (stream_prof3.fwd_reps, stream_prof3.fwd_reps_plain, (), stream_prof3.REPS),
@@ -639,13 +640,16 @@ def test_probe_kernels_match_plain(dev, kind, mode, nstages):
         "lane_stages": (stream_prof2.lane_stages, stream_prof2.lane_stages_plain,
                         (mode, nstages), stream_prof2.REPS),
     }[kind]
-    shapes = [(8, 1), (8, 3), (probe_common.NB_TIME, timed_reps[0])]
+    data = probe_common.resident_data
+    shapes = [(8, 1, data), (8, 3, data), (probe_common.NB_TIME, timed_reps[0], data)]
     if kind == "lane_stages":
-        shapes += [(nb, reps) for nb in (1, 3, 133) for reps in (0, 3)]
-    if kind == "ops":
-        shapes += [(nb, reps) for nb in (1, 3, 133, 264) for reps in (0, 1, 2)]
-    for nb, reps in shapes:
-        x = probe_common.resident_data(nb, dev)
+        shapes += [(nb, reps, data) for nb in (1, 3, 133) for reps in (0, 3)]
+    if kind in ("ops", "fwd_reps", "stage_modes"):
+        shapes += [(nb, reps, data) for nb in (1, 3, 133, 264) for reps in (0, 1, 2)]
+    if kind in ("fwd_reps", "stage_modes"):
+        shapes += [(3, reps, stream_prof.edge_data) for reps in (0, 1, 2)]
+    for nb, reps, make in shapes:
+        x = make(nb, dev)
         before = fn.launches
         got = fn(x, *args, reps)
         torch.cuda.synchronize()
