@@ -172,6 +172,27 @@ def sass_counts(kernel: str, opcodes) -> dict:
     return counts
 
 
+def sass_listing(kernel: str, library=None) -> dict:
+    """{function: [instruction text]} of the functions of `library` (the
+    current build when None) whose name contains `kernel`, as cuobjdump
+    --dump-sass gives them with the offsets and encodings stripped, and
+    the hash nvcc gives the file's anonymous namespace taken out of the
+    name: two builds whose listings are equal compiled the kernel to the
+    same code."""
+    sass = _sass(str(library or build()))
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_",
+                          line.split("Function :", 1)[1].strip())
+            name = name if kernel in name else None
+            if name:
+                out[name] = []
+        elif name and (m := re.search(r"\*/\s+(.*?)\s*;", line)):
+            out[name].append(m.group(1))
+    return out
+
+
 def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a nonzero cudaError_t."""
     if err:

@@ -20,8 +20,8 @@
 // Design for Hopper.  The TPU moved chunks of 8 blocks (256 KiB per slot);
 // a CTA has 227 KiB of shared memory, so a chunk here is one 32 KiB block
 // (half a polynomial for the stages, whose lane stages stay inside a row of
-// 128 words).  Persistent CTAs, at most one per SM, walk the chunks c =
-// blockIdx.x + k gridDim.x.  One thread issues every copy:
+// 128 words).  Persistent CTAs, at most one per SM (the stages: two, below),
+// walk the chunks c = blockIdx.x + k gridDim.x.  One thread issues every copy:
 // cp.async.bulk global -> shared completes on an mbarrier that expects the
 // chunk's bytes; cp.async.bulk shared -> global goes out in a bulk group.
 // Threads write a slot with ordinary stores, so every writer fences the
@@ -36,17 +36,54 @@
 //     .wait()); the CTA drains its stores at the end.
 // tblread folds each thread's 13-row table sum into registers once per CTA
 // (the same 16 positions recur in every block; the table is read from L2).
-// The stages read q's compact (w, ws) tables (64 KiB each) through L1/L2,
-// element i of stage s taking w[2^s + (i >> (13 - s))]; one warp owns a
-// row, four words per thread (lanes l, l+32, l+64, l+96), so the distances
-// 64 and 32 pair words inside a thread and 16 .. 1 pair threads by
-// __shfl_xor_sync; no shared memory round trip between stages.
+//
+// The stages have their own pipeline (stages_ring): each chunk is stepped
+// in place in the slot it was loaded into, by 256 threads of 16 words in
+// registers.  A row of 128 words is 8 threads (l0 = 0..7), a warp 4 rows,
+// a chunk of 32 rows 8 warps.  Two owner maps, each a radix-16
+// sub-transform in registers:
+//   pass A, stages s = 6 .. min(9, 5 + NSTAGES) (distances 64 .. 8, lane
+//     bits 6 .. 3): register m holds lane l0 + 8m;
+//   pass B, stages 10 .. 5 + NSTAGES (distances 4, 2, 1, lane bits 2 .. 0):
+//     register m holds lane 16 l0 + m, 16 adjacent words (bit 3 carried).
+// Each thread writes its words back to the slots it read, so the exchange
+// between the passes is one __syncwarp (a row's 8 threads are one warp's),
+// and at NSTAGES <= 4 pass B and the exchange are absent.  Every butterfly
+// is computed once, by the thread that holds both words; each distinct
+// (w, ws) pair of a pass is loaded once, just before its stage (15 in
+// pass A, 14 in pass B, 16-byte loads where a stage takes consecutive
+// ones).  NSTAGES is a template parameter: every distance, shift and table
+// offset is a constant.
+//
+// Shared memory: the chunk goes in and out by one 5-D TMA copy with the
+// 128-byte swizzle (csrc/tensor_map.cuh), which keeps each 16-byte unit
+// whole and moves it to unit u ^ (line mod 8) of its 128-byte line.  The
+// box puts line L = (row r, group g = lane >> 4) of the chunk at L = g0 g1
+// r0 g2 r1 r2 r3 r4 (bits low to high), so word w of the group lands in
+// slot 16 L + (w ^ 2 (L & 7)).  With that slot, pass A's 8-byte accesses
+// (a half-warp: rows r0 = 0, 1 of one register, 8 threads each) and pass
+// B's 16-byte ones (a quarter-warp: the 8 lines g0 g1 r0) fall on distinct
+// banks, with no select or shuffle of a word; tests/test_torch_dma_stages_
+// regs.py checks both, and the TMA image, in a NumPy model.
+//
+// The ring: ST_SLOTS slots; chunk k + 1 of a CTA is loaded into slot
+// (k + 1) mod ST_SLOTS while chunk k is stepped, only after
+// wait_group.read ST_SLOTS - 2 says the store that last read that slot
+// has read it.  Two CTAs share an SM, so one CTA's barrier and mbarrier
+// waits hide under the other's arithmetic.  2 slots (64 KiB a CTA) beat
+// 3 slots at two CTAs an SM and 2 slots at three (PERF.md §6, row 18),
+// most likely because the L1 left beside 128 KiB of slots holds the 64
+// KiB of (w, ws) pairs that every chunk of a half takes, and beside 192
+// KiB does not: a build with every twiddle at one table row was as fast.  The
+// grid is min(2 nb, CTAs an SM x SMs), the CTAs an SM from the occupancy
+// calculator, once per device.
 //
 // Bound on Hopper: HBM bytes, each block read once and written once (the
 // stages' Shoup products stay under it up to 7 stages).
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
+#include "tensor_map.cuh"  // CUtensorMap, encode_tiled
 
 namespace {
 
@@ -56,7 +93,6 @@ typedef unsigned char u8;
 constexpr int ROWS = 64, LANES = 128, WORDS = ROWS * LANES;
 constexpr int THREADS = 512;
 constexpr u32 CHUNK = WORDS * sizeof(u32);  // bytes of one slot: 32 KiB
-constexpr int HALF_ROWS = CHUNK / (LANES * sizeof(u64));  // u64 rows of a chunk: 32
 constexpr int VEC = WORDS / 4 / THREADS;  // uint4 per thread per block: 4
 constexpr size_t BARRIER_BYTES = 16;  // the mbarriers, after the slots
 constexpr int MAX_DEVICES = 64;
@@ -192,58 +228,6 @@ struct TableStep {  // dma_bisect_tblread: out = x + sum of the 13 table rows
   }
 };
 
-struct StagesStep {  // dma_bisect_stages: lane stages s = 6 .. 5 + nstages
-  const u64* w;
-  const u64* ws;
-  u64 q;
-  int nstages;
-  __device__ void setup() {}
-
-  // the Harvey butterfly of ntt_pallas._ct_butterfly: u < 4q, v any
-  __device__ __forceinline__ void bfly(u64& u, u64& v, int k) const {
-    const u64 up = condsub(u, 2 * q);
-    const u64 y = shoup_mul(v, __ldg(w + k), __ldg(ws + k), q);
-    u = up + y;
-    v = up + 2 * q - y;
-  }
-
-  __device__ void operator()(const u8* in_, u8* out_, int c) const {
-    const u64* in = (const u64*)in_;
-    u64* out = (u64*)out_;
-    const int lane = threadIdx.x & 31;
-    // chunk c is half (c & 1) of polynomial c >> 1: rows (c & 1) * 32 ..
-    for (int r = threadIdx.x >> 5; r < HALF_ROWS; r += THREADS / 32) {
-      const int base = ((c & 1) * HALF_ROWS + r) * LANES + lane;  // word v[0] in the polynomial
-      u64 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = in[r * LANES + lane + 32 * j];
-#pragma unroll 1
-      for (int s = 6; s < 6 + nstages; ++s) {
-        const int sh = 13 - s;  // the pair's twiddle: w[2^s + (i >> sh)]
-        const int t = 1 << (12 - s);
-        if (t == 64) {  // pairs (j, j + 2) inside the thread
-          bfly(v[0], v[2], (1 << s) + (base >> sh));
-          bfly(v[1], v[3], (1 << s) + ((base + 32) >> sh));
-        } else if (t == 32) {  // pairs (j, j + 1)
-          bfly(v[0], v[1], (1 << s) + (base >> sh));
-          bfly(v[2], v[3], (1 << s) + ((base + 64) >> sh));
-        } else {  // the partner is lane ^ t; the upper thread keeps the bottom
-          const bool upper = lane & t;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const u64 p = __shfl_xor_sync(0xffffffffu, v[j], t);
-            u64 a = upper ? p : v[j], b = upper ? v[j] : p;
-            bfly(a, b, (1 << s) + ((base + 32 * j) >> sh));
-            v[j] = upper ? b : a;
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[r * LANES + lane + 32 * j] = v[j];
-    }
-  }
-};
-
 // ------------------------------------------------------------- pipelines
 // x, y: nchunks chunks of CHUNK bytes, 16-byte aligned.
 
@@ -321,6 +305,231 @@ cudaError_t launch(int device, void (*kernel)(const u8*, u8*, int, Op), int nslo
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- stages pipeline
+constexpr int ST_THREADS = 256;  // 32 rows of 8 threads
+constexpr int ST_ROWS = 32;      // u64 rows of a chunk: half a polynomial
+constexpr int ST_SLOTS = 2;      // the ring's slots
+constexpr int ST_CTAS = 2;       // CTAs an SM (__launch_bounds__: at most 128 registers)
+constexpr int ST_A_SHIFT = 3;    // pass A: register m holds lane l0 + (m << ST_A_SHIFT)
+constexpr int ST_B_SHIFT = 4;    // pass B: register m holds lane (l0 << ST_B_SHIFT) + m
+// The bits of l0 and of the row, low to high, in a thread's index and in a
+// line's index (pass B's thread tid holds line tid): l0 at bits 0, 1, 3,
+// the row at 2, 4-7.
+constexpr unsigned ST_L0_BITS = 0x0b;
+constexpr unsigned ST_ROW_BITS = 0xf4;
+constexpr unsigned ST_ALIGN = 1024;  // the 128-byte swizzle's atom
+constexpr size_t ST_SMEM = ST_SLOTS * (size_t)CHUNK + ST_ALIGN + ST_SLOTS * sizeof(u64);
+// The TMA box of a chunk: (16 words, g0 g1, r0, g2, r1-r4), byte strides of
+// dimensions 1-4 in the (nb, 64, 128) u64 array (row 1024, group 128 bytes).
+constexpr cuuint32_t ST_BOX[5] = {16, 4, 2, 2, 16};
+constexpr cuuint64_t ST_STRIDES[4] = {128, 1024, 512, 2048};
+
+// v's bits, low to high, to the set bits of mask, and back
+__host__ __device__ constexpr int scatter_bits(int v, unsigned mask) {
+  int out = 0, k = 0;
+  for (int b = 0; b < 8; ++b)
+    if (mask >> b & 1) out |= ((v >> k++) & 1) << b;
+  return out;
+}
+__host__ __device__ constexpr int gather_bits(int v, unsigned mask) {
+  int out = 0, k = 0;
+  for (int b = 0; b < 8; ++b)
+    if (mask >> b & 1) out |= ((v >> b) & 1) << k++;
+  return out;
+}
+
+// the line of row r's group g, and the u64 slot of its word w (the
+// swizzle: 16-byte unit u at u ^ (L mod 8)); slot(L | L', w ^ w') =
+// slot(L, w) ^ slot(L', w') for lines of disjoint bits
+__host__ __device__ constexpr int st_line(int r, int g) {
+  return scatter_bits(g, ST_L0_BITS) | scatter_bits(r, ST_ROW_BITS);
+}
+__host__ __device__ constexpr int st_slot(int line, int w) {
+  return 16 * line + (w ^ ((line & 7) << 1));
+}
+
+// chunk c (rows 32c .. 32c + 31 of the array) by the 5-D map, into dst,
+// completing on bar; and out of src, as one bulk group
+__device__ __forceinline__ void tma_load_chunk(void* dst, const CUtensorMap* map, int c, u64* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(CHUNK)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %2, %2, %2, %3}], [%4];"
+      ::"r"(smem_addr(dst)), "l"((unsigned long long)map), "r"(0), "r"(c * (ST_ROWS / 2)),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_chunk(const CUtensorMap* map, const void* src, int c) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %2, %2, %2, %3}], [%1];"
+      ::"l"((unsigned long long)map), "r"(smem_addr(src)), "r"(0), "r"(c * (ST_ROWS / 2))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// NJ consecutive (w, ws) pairs from index base (even when NJ > 1: 16-byte loads)
+template <int NJ>
+__device__ __forceinline__ void load_pairs(u64 (&tw)[NJ], u64 (&tws)[NJ], const u64* w,
+                                           const u64* ws, int base) {
+  if constexpr (NJ == 1) {
+    tw[0] = __ldg(w + base);
+    tws[0] = __ldg(ws + base);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      const ulonglong2 a = __ldg((const ulonglong2*)(w + base + j));
+      const ulonglong2 b = __ldg((const ulonglong2*)(ws + base + j));
+      tw[j] = a.x, tw[j + 1] = a.y, tws[j] = b.x, tws[j + 1] = b.y;
+    }
+  }
+}
+
+// One stage on register bit K: the butterflies (m, m | 2^K), m's bit K
+// clear, the pair's twiddle w[base + (m >> (K + 1))]
+template <int K>
+__device__ __forceinline__ void st_stage(u64 (&a)[16], const u64* w, const u64* ws, int base,
+                                         u64 q, u64 q2) {
+  constexpr int NJ = 16 >> (K + 1);
+  u64 tw[NJ], tws[NJ];
+  load_pairs<NJ>(tw, tws, w, ws, base);
+#pragma unroll
+  for (int m = 0; m < 16; ++m)
+    if (!(m >> K & 1)) ct(a[m], a[m | 1 << K], tw[m >> (K + 1)], tws[m >> (K + 1)], q, q2);
+}
+
+// Stages S .. LAST of a pass whose register m holds word i0 + (m << SHIFT)
+// of the polynomial: stage s pairs index bit 12 - s, register bit K = 12 -
+// s - SHIFT; word i takes w[2^s + (i >> (13 - s))], so the pair (m, m |
+// 2^K) takes w[2^s + (i0 >> (13 - s)) + (m >> (K + 1))].
+template <int S, int LAST, int SHIFT>
+__device__ __forceinline__ void st_stages(u64 (&a)[16], const u64* w, const u64* ws, int i0,
+                                          u64 q, u64 q2) {
+  if constexpr (S <= LAST) {
+    st_stage<12 - S - SHIFT>(a, w, ws, (1 << S) + (i0 >> (13 - S)), q, q2);
+    st_stages<S + 1, LAST, SHIFT>(a, w, ws, i0, q, q2);
+  }
+}
+
+// the slot of lane `lane` of row r (its group lane >> 4, its word lane & 15)
+__host__ __device__ constexpr int st_lane_slot(int r, int lane) {
+  return st_slot(st_line(r, lane >> 4), lane & 15);
+}
+
+// NST stages s = 6 .. 5 + NST on chunk c (half c & 1 of polynomial c >> 1)
+// in its slot sl, in place.  A register's slot is the thread's part XOR
+// the register's (lanes of disjoint bits).
+template <int NST>
+__device__ __forceinline__ void st_step(u64* sl, int c, const u64* w, const u64* ws, u64 q) {
+  if constexpr (NST > 0) {
+    const int r = gather_bits(threadIdx.x, ST_ROW_BITS), l0 = gather_bits(threadIdx.x, ST_L0_BITS);
+    const int i0 = (((c & 1) * ST_ROWS) | r) * LANES;  // the row's first word in the polynomial
+    const u64 q2 = 2 * q;
+    u64 a[16];
+    // pass A: register m holds lane l0 + (m << ST_A_SHIFT)
+    const int ta = st_lane_slot(r, l0);
+#pragma unroll
+    for (int m = 0; m < 16; ++m) a[m] = sl[ta ^ st_lane_slot(0, m << ST_A_SHIFT)];
+    st_stages<6, (NST < 4 ? 5 + NST : 9), ST_A_SHIFT>(a, w, ws, i0 + l0, q, q2);
+#pragma unroll
+    for (int m = 0; m < 16; ++m) sl[ta ^ st_lane_slot(0, m << ST_A_SHIFT)] = a[m];
+    if constexpr (NST > 4) {
+      __syncwarp();
+      // pass B: register m holds lane (l0 << ST_B_SHIFT) + m; words 2p, 2p + 1
+      // are one 16-byte unit
+      const int tb = st_lane_slot(r, l0 << ST_B_SHIFT);
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const ulonglong2 v = *(const ulonglong2*)(sl + (tb ^ st_lane_slot(0, 2 * p)));
+        a[2 * p] = v.x, a[2 * p + 1] = v.y;
+      }
+      st_stages<10, 5 + NST, 0>(a, w, ws, i0 + (l0 << ST_B_SHIFT), q, q2);
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+        *(ulonglong2*)(sl + (tb ^ st_lane_slot(0, 2 * p))) =
+            make_ulonglong2(a[2 * p], a[2 * p + 1]);
+    }
+  }
+}
+
+// xmap, ymap: x and y as encode_chunks_map lays them out; nchunks = 2 nb.
+template <int NST>
+__global__ void __launch_bounds__(ST_THREADS, ST_CTAS)
+stages_ring(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+            const u64* __restrict__ w, const u64* __restrict__ ws, u64 q, int nchunks) {
+  extern __shared__ u8 st_raw[];
+  u8* const smem = st_raw + (ST_ALIGN - smem_addr(st_raw) % ST_ALIGN) % ST_ALIGN;
+  u64* const full = (u64*)(smem + ST_SLOTS * CHUNK);  // one mbarrier a slot
+  init_barriers(full, ST_SLOTS);
+  const int n = (nchunks - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (threadIdx.x == 0) tma_load_chunk(smem, &xmap, blockIdx.x, full);
+  int s = 0;       // chunk k's slot, k mod ST_SLOTS
+  u32 parity = 0;  // of k / ST_SLOTS, the slot's use
+  for (int k = 0; k < n; ++k) {
+    const int c = blockIdx.x + k * gridDim.x, nxt = s + 1 == ST_SLOTS ? 0 : s + 1;
+    if (threadIdx.x == 0 && k + 1 < n) {
+      bulk_wait_read<ST_SLOTS - 2>();  // chunk k + 1 - ST_SLOTS's store has read slot nxt
+      tma_load_chunk(smem + nxt * CHUNK, &xmap, c + gridDim.x, full + nxt);
+    }
+    bar_wait(full + s, parity);
+    st_step<NST>((u64*)(smem + s * CHUNK), c, w, ws, q);
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) tma_store_chunk(&ymap, smem + s * CHUNK, c);
+    parity ^= nxt == 0;
+    s = nxt;
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
+}
+
+// The 5-D map of (nb, 64, 128) u64 at p (16-byte aligned): a box is one
+// chunk, ST_BOX, 128-byte swizzle.
+cudaError_t encode_chunks_map(CUtensorMap* map, const void* p, int nb) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[5] = {16, 4, 2, 2, (cuuint64_t)nb * (ROWS / 2)};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 5, const_cast<void*>(p), dims,
+                            ST_STRIDES, ST_BOX, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The SM count, the CTAs an SM (occupancy calculator) and the kernel's
+// shared-memory size are read and set once per device and instance.
+template <int NST>
+cudaError_t launch_stages(int device, const void* x, void* y, const void* w, const void* ws,
+                          u64 q, int nb, void* stream) {
+  static int sms[MAX_DEVICES], ctas[MAX_DEVICES];  // 0 until the device's first launch
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if ((size_t)w % 16 || (size_t)ws % 16) return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!sms[device]) {
+    int n = 0, k = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(stages_ring<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)ST_SMEM)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, stages_ring<NST>, ST_THREADS,
+                                                             ST_SMEM)) != cudaSuccess)
+      return err;
+    if (k < 1) return cudaErrorInvalidConfiguration;
+    ctas[device] = k;
+    sms[device] = n;
+  }
+  CUtensorMap xmap, ymap;
+  if ((err = encode_chunks_map(&xmap, x, nb)) != cudaSuccess ||
+      (err = encode_chunks_map(&ymap, y, nb)) != cudaSuccess)
+    return err;
+  const int nchunks = 2 * nb, most = ctas[device] * sms[device];
+  stages_ring<NST><<<nchunks < most ? nchunks : most, ST_THREADS, ST_SMEM, (cudaStream_t)stream>>>(
+      xmap, ymap, (const u64*)w, (const u64*)ws, q, nchunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: (nb, 64, 128) int32 (u32 bit patterns), 16-byte aligned; nb >= 1.
@@ -345,10 +554,19 @@ extern "C" int aloha_probe_dma_tblread(int device, const void* t, const void* x,
 }
 
 // x, y: (nb, 8192) int64 words < 4q, 16-byte aligned; w, ws: q's compact
-// forward tables (8192,); 0 <= nstages <= 7; nb >= 1.
+// forward tables (8192,), 16-byte aligned; 0 <= nstages <= 7; nb >= 1.
 extern "C" int aloha_probe_dma_stages(int device, const void* x, void* y, const void* w,
                                       const void* ws, unsigned long long q, int nb, int nstages,
                                       void* stream) {
-  const StagesStep op{(const u64*)w, (const u64*)ws, q, nstages};
-  return (int)launch(device, two_slots<StagesStep>, 4, 2 * nb, stream, x, y, op);
+  switch (nstages) {
+    case 0: return (int)launch_stages<0>(device, x, y, w, ws, q, nb, stream);
+    case 1: return (int)launch_stages<1>(device, x, y, w, ws, q, nb, stream);
+    case 2: return (int)launch_stages<2>(device, x, y, w, ws, q, nb, stream);
+    case 3: return (int)launch_stages<3>(device, x, y, w, ws, q, nb, stream);
+    case 4: return (int)launch_stages<4>(device, x, y, w, ws, q, nb, stream);
+    case 5: return (int)launch_stages<5>(device, x, y, w, ws, q, nb, stream);
+    case 6: return (int)launch_stages<6>(device, x, y, w, ws, q, nb, stream);
+    case 7: return (int)launch_stages<7>(device, x, y, w, ws, q, nb, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -37,6 +37,8 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 
+#include "tensor_map.cuh"
+
 namespace {
 
 constexpr unsigned SW128_ATOM = 1024;  // bytes of one 8-row swizzle atom
@@ -247,30 +249,6 @@ __device__ __forceinline__ void wgmma_m64k32_s8(int (&d)[NACC], unsigned long lo
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda);
-// looked up once per process
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
 // A 3-D map of int8 planes (planes, rows, 128) at p (16-byte aligned), box
 // (box_planes, box_rows, 128), 128-byte swizzle: a box lands in shared
 // memory as box_planes x box_rows rows of 128 bytes in the layout above.

@@ -2,7 +2,12 @@
 
 The port of tools/dma_bisect_stages.py; alone:
 
-    python -m aloha_tpu_torch.probes.dma_bisect_stages [4 7 ...]
+    python -m aloha_tpu_torch.probes.dma_bisect_stages [0 4 7 ...]
+
+or as a file, `PYTHONPATH=<checkout> python aloha_tpu_torch/probes/
+dma_bisect_stages.py 0 4 7`, which times that checkout's kernel (it reads
+only `common`'s helpers, `dma_bisect`'s report and `copy_` timing, and the
+C entry from the package).
 
 Replaces the TPU kernel of tools/dma_bisect_stages.py:81 (`body` :16-76:
 `dma_bisect_doublebuf`'s pipeline over two u32 planes, NSTAGES forward
@@ -17,10 +22,19 @@ ntt_pallas._ct_butterfly's lazy Harvey form: u' = u - 2q if u >= 2q, y =
 Shoup(v w), top u' + y, bottom u' + 2q - y; the words stay lazy, below 4q,
 and are compared as they are.
 
-The kernel moves half a polynomial (32 KiB) per chunk.  Timed as
+The kernel moves half a polynomial (32 KiB) per chunk through a ring of
+slots in shared memory (5-D TMA copies with the 128-byte swizzle) and steps
+it in place: 256 threads of 16 words in registers, pass A (stages 6-9,
+register m holding lane l0 + 8m of the thread's row) and pass B (stages
+10-12, lane 16 l0 + m), each thread writing its words back to the slots it
+read, one `__syncwarp` between the passes, every butterfly computed once,
+nstages a template parameter (csrc/probe_dma.cu, `stages_ring`).  Timed as
 `dma_bisect`, per polynomial at nb = NBS (64 and 256 MiB each way); the
 bound is the larger of the bytes over the HBM rate and `ops(nstages)`
-INT32 instructions over the integer issue peak.
+INT32 instructions over the integer issue peak.  `main` prints beside
+them `torch.Tensor.copy_`'s marginal per polynomial (two 32 KiB blocks,
+`dma_bisect.measure_library`), the floor of any pipeline that moves the
+words: no one PyTorch call computes the stages.
 """
 
 from __future__ import annotations
@@ -32,12 +46,12 @@ import torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.ops import dispatch
 from aloha_tpu_torch.probes import common as C
-from aloha_tpu_torch.probes.dma_bisect import check_aligned, report
+from aloha_tpu_torch.probes.dma_bisect import check_aligned, measure_library, report
 
 #: the lane stages, the most a call runs
 FIRST, MAX_STAGES = 6, 7
-#: stage counts measured: the script's default and every lane stage
-NSTAGES = (4, 7)
+#: stage counts measured: the copy ring alone, pass A alone, both passes
+NSTAGES = (0, 4, 7)
 #: polynomials of the timed launches: 64 and 256 MiB each way
 NBS = (1024, 4096)
 #: bytes one polynomial moves: read once, written once
@@ -106,9 +120,12 @@ def main(argv=None):
     counts = [int(k) for k in C.names(args, [str(k) for k in range(MAX_STAGES + 1)])]
     card = C.require_card()
     peak = C.int32_peak()
-    for k, *m in measure(counts if args else NSTAGES, torch.device("cuda", 0)):
+    dev = torch.device("cuda", 0)
+    copy_ns = 2 * measure_library(dev)[0]  # two 32 KiB blocks a polynomial
+    for k, *m in measure(counts if args else NSTAGES, dev):
         print(report(f"dma_stages nstages={k}", m, POLY_BYTES, card, NBS, "polynomial",
-                     bound(k, peak)), flush=True)
+                     bound(k, peak)) + f"; torch copy_ marginal_ns={copy_ns:.3f} per polynomial",
+              flush=True)
 
 
 if __name__ == "__main__":

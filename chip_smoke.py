@@ -19,7 +19,10 @@ Phases, each printing its own line; any failure exits nonzero:
      instances holds IGMMA and no IMMA or HMMA, vpu's none, and their
      registers and spill; the registers and spill of the stage-modes
      kernel's three instances beside ntt.cu's forward transform at n = 8192
-     (ntt_regs_kernel<13, false, 1>), whose register passes they run;
+     (ntt_regs_kernel<13, false, 1>), whose register passes they run; the
+     registers and spill of the copy pipeline's 8 stages instances
+     (stages_ring<0..7>) beside rows 17 and 19's two_slots, failing unless
+     ptxas reports 8;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -123,17 +126,20 @@ Phases, each printing its own line; any failure exits nonzero:
      NEEDED_OPS, beside the frozen OPS), with all eight kernels launched.
      Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
-     row-pair swap, the table read, 4 and 7 NTT lane stages) against their
+     row-pair swap, the table read, 0-7 NTT lane stages) against their
      plain versions at the scripts' batches (16 or 32), at nb=133 and at
      the timed lower nb (2048 blocks, 1024 polynomials; timed there;
      dma_copy also at nb = 1, 131 and 132, and timed eager and in a graph
-     burst), and torch copy_ of the same blocks both ways; on the main
+     burst; the stages at every count on nb = 1, 32, 133 and 264 and on
+     the edge words 0, q - 1, 2q, 4q - 1, timed at 0, 4 and 7), and torch
+     copy_ of the same blocks both ways; on the main
      path, the host/device split of dma_copy's and copy_'s fixed cost
      (eager and graph at 2048 and 8192 blocks), the marginal ns per
      block (polynomial) over the batch between 2048 and 8192 blocks (1024
      and 4096 polynomials), beside its bound (bytes in and out over the HBM
      rate; the stages' INT32 instructions, the larger), the rate in GB/s,
-     and copy_'s marginal, with all four kernels launched.
+     and copy_'s marginal (the stages' also per polynomial, two blocks,
+     as their floor), with all four kernels launched.
 Then the order of redesign ("step 2 order": each kernel's launches x (time
 - bound), rows redesigned so far marked).  The line before the last is a
 JSON object of the kernels (launches summed over the main paths, and per
@@ -208,7 +214,7 @@ def phase_build():
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
     registers = ntt_registers()
     return (registers, ks_registers(), lane_registers(), ops_registers(), parts_registers(),
-            stage_registers(registers))
+            stage_registers(registers), dma_registers())
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -304,6 +310,33 @@ def stage_registers(ntt_usage: dict) -> dict:
     print("build: stage_modes_kernel registers/spill stores/spill loads: "
           + ", ".join(f"{m} {'/'.join(map(str, usage[m]))}" for m in stream_prof.MODES)
           + f"; beside ntt_regs_kernel<13, false, 1> {'/'.join(map(str, ntt))}", flush=True)
+    return usage
+
+
+def dma_registers() -> dict:
+    """{"nstages=k": [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_dma.cu's stages_ring<k>, k = 0-7, from ptxas' report,
+    printed beside the two-slot pipelines of rows 17 and 19; fails unless
+    ptxas reports the 8 instances (a spill is reported, not failed)."""
+    import re
+
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes import dma_bisect_stages
+
+    usage = {}
+    for name, use in _build.ptxas_usage("stages_ring").items():
+        k = re.search(r"stages_ringILi(\d)E", name)
+        usage[f"nstages={k.group(1)}"] = list(use)
+    usage = dict(sorted(usage.items()))
+    if len(usage) != dma_bisect_stages.MAX_STAGES + 1:
+        fail(f"ptxas reported {len(usage)} instances of stages_ring, not "
+             f"{dma_bisect_stages.MAX_STAGES + 1}: {usage}")
+    slots = {step: list(use) for name, use in _build.ptxas_usage("two_slots").items()
+             for step in ("RollSwapStep", "TableStep") if step in name}
+    print("build: stages_ring registers/spill stores/spill loads: "
+          + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in usage.items())
+          + "; beside two_slots " + ", ".join(f"{k} {'/'.join(map(str, v))}"
+                                              for k, v in slots.items()), flush=True)
     return usage
 
 
@@ -1760,17 +1793,28 @@ def phase_probes(card: str, dev, results: dict):
             ("probe_dma_tblread", "table", lambda x: DT.tblread(tt, x),
              lambda x: DT.tblread_plain(tt, x), xb, (32, 133, D.NBS[0]),
              lambda nb: dma_work(nb, D.BLOCK_BYTES, DT.TABLE_BYTES, DT.OPS))]
+    # the stages at every count on the edge batches (1 polynomial; more
+    # chunks than SMs; than two CTAs an SM hold) and the edge words, timed
+    # at the lower timed batch for DS.NSTAGES
     dma += [("probe_dma_stages", f"nstages={k}", lambda x, k=k: DS.stages(x, k),
-             lambda x, k=k: DS.stages_plain(x, k), xp, (32, 133, DS.NBS[0]),
+             lambda x, k=k: DS.stages_plain(x, k), xp,
+             (1, 32, 133, 264) + ((DS.NBS[0],) if k in DS.NSTAGES else ()),
              lambda nb, k=k: dma_work(nb, DS.POLY_BYTES, 2 * common.N * 8, DS.ops(k)))
-            for k in DS.NSTAGES]
+            for k in range(DS.MAX_STAGES + 1)]
+    edge = stream_prof.edge_data(3, dev)
+    for k in range(DS.MAX_STAGES + 1):
+        err = compare("probe_dma_stages", f"nstages={k} edge nb=3", lambda: DS.stages(edge, k),
+                      lambda: DS.stages_plain(edge, k))
+        results.setdefault("probe_dma_stages", []).append((f"nstages={k} edge nb=3", err))
     for kernel, label, run, plain, x, nbs, work in dma:
-        for b in nbs[:-1]:
+        timed = kernel != "probe_dma_stages" or nbs[-1] == DS.NBS[0]
+        for b in nbs[:-1] if timed else nbs:
             err = compare(kernel, f"{label} nb={b}", lambda: run(x[:b]), lambda: plain(x[:b]))
             results.setdefault(kernel, []).append((f"{label} nb={b}", err))
-        b = nbs[-1]
-        check(results, card, kernel, f"{label} nb={b}", lambda: run(x[:b]), lambda: plain(x[:b]),
-              work(b))
+        if timed:
+            b = nbs[-1]
+            check(results, card, kernel, f"{label} nb={b}", lambda: run(x[:b]),
+                  lambda: plain(x[:b]), work(b))
     y = torch.empty_like(xb)
     b = D.NBS[0]
     graph_check(results, card, "probe_dma_copy", f"copy nb={b}", lambda: D.dma_copy(xb[:b], "copy"))
@@ -1781,7 +1825,8 @@ def phase_probes(card: str, dev, results: dict):
     print(f"library torch copy_ nb={b}: eager {lib_us:.2f} us, graph {lib_graph_us:.2f} us per "
           f"call ({b * D.BLOCK_BYTES / lib_us / 1e3:.1f} GB/s eager) on {card}", flush=True)
     print(f"probes: {len(dma)} copy-pipeline cases equal at the scripts' batches, nb=133 and "
-          f"the timed lower nb, in {time.perf_counter() - t0:.1f} s with the inputs drawn on "
+          f"the timed lower nb (the stages at 0-{DS.MAX_STAGES} stages, nb = 1, 32, 133, 264 "
+          f"and the edge words), in {time.perf_counter() - t0:.1f} s with the inputs drawn on "
           f"{card}", flush=True)
 
     # the main path: counts start at 0 here
@@ -1842,6 +1887,11 @@ def phase_probes(card: str, dev, results: dict):
                   flush=True)
             results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (m[0], bound_ns[0])
     print("library " + D.report("torch copy_", lib, D.BLOCK_BYTES, card), flush=True)
+    floor = 2 * lib[0]  # two 32 KiB blocks a polynomial
+    stages = ", ".join(f"{label} {m[0]:.3f} ns ({m[0] / floor:.2f} x)"
+                       for label, m, _ in copies["probe_dma_stages"])
+    print(f"probe probe_dma_stages beside the copy floor: {stages} per polynomial; torch copy_ "
+          f"{floor:.3f} ns per polynomial (two blocks) on {card}", flush=True)
     for line in D.split_report(split, card):
         print("probe " + line, flush=True)
     for kernel, rows in measured.items():
@@ -1882,7 +1932,8 @@ def phase_probes(card: str, dev, results: dict):
 #: kernels whose design step 2 has already redone (PERF.md §6 names when)
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
               "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages",
-              "probe_ops", "probe_mxu_parts", "probe_fwd_reps", "probe_stage_modes"}
+              "probe_ops", "probe_mxu_parts", "probe_fwd_reps", "probe_stage_modes",
+              "probe_dma_stages"}
 
 
 def step2_order(kernels) -> list:
@@ -1915,7 +1966,7 @@ def main():
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
         (registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_,
-         stage_registers_) = phase_build()
+         stage_registers_, dma_registers_) = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -2024,6 +2075,8 @@ def main():
             entry["ops_bound_ns"] = results["ops_bound_ns"][name]
         if name == "probe_fwd_reps":
             entry["full_vs_ntt_ns"] = results["fwd_reps_vs_ntt_ns"]
+        if name == "probe_dma_stages":
+            entry["registers"] = dma_registers_
         if name in ("ks_head", "ks_tail"):
             entry["timing"] = results["ks_timing"][name]
             entry["registers"] = {k: v for k, v in ks_registers_.items()

@@ -748,7 +748,8 @@ def test_dma_copy_matches_plain_around_the_grid(dev, nb, mode):
 
 
 DMA_PROBE_CASES = ([("copy", m) for m in dma_bisect.MODES] + [("doublebuf", None),
-                   ("tblread", None)] + [("stages", k) for k in (0, 1, 4, 7)])
+                   ("tblread", None)]
+                   + [("stages", k) for k in range(dma_bisect_stages.MAX_STAGES + 1)])
 
 
 @pytest.mark.parametrize("kind,arg", DMA_PROBE_CASES)
@@ -756,7 +757,10 @@ def test_dma_probe_kernels_match_plain(dev, kind, arg):
     """csrc/probe_dma.cu's four pipelines equal their plain versions at nb =
     1, 16, 32 (the scripts' batches) and 133 (more chunks than SMs, not a
     multiple of them), and on a view that starts at block 1; each launch
-    counts once."""
+    counts once.  The stages, at every stage count 0-7, also at nb = 264
+    (528 chunks: more than two CTAs an SM hold, not a multiple of them) and
+    on the edge words 0, q - 1, 2q, 4q - 1."""
+    nbs = (1, 16, 32, 133)
     if kind == "copy":
         fn = lambda x: dma_bisect.dma_copy(x, arg)  # noqa: E731
         plain = lambda x: dma_bisect.dma_copy_plain(x, arg)  # noqa: E731
@@ -773,8 +777,12 @@ def test_dma_probe_kernels_match_plain(dev, kind, arg):
         fn = lambda x: dma_bisect_stages.stages(x, arg)  # noqa: E731
         plain = lambda x: dma_bisect_stages.stages_plain(x, arg)  # noqa: E731
         counter, data = dma_bisect_stages.stages, probe_common.resident_data
-    for nb in (1, 16, 32, 133):
-        x = data(nb + 1, dev, seed=nb)
+        nbs += (264,)
+    inputs = [data(nb + 1, dev, seed=nb) for nb in nbs]
+    if kind == "stages":
+        inputs.append(stream_prof.edge_data(4, dev, seed=arg))
+    for x in inputs:
+        nb = x.shape[0] - 1
         for xs in (x[:nb], x[1:]):
             before = counter.launches
             got = fn(xs)

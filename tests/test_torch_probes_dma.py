@@ -15,10 +15,9 @@ tables), at the script's shapes:
   the port's int64 words split back into planes; the port's twiddle rows
   equal `_tables_np` rows 6-12.
 
-A NumPy model of `csrc/probe_dma.cu`'s stage step (one warp per row, four
-words per thread, distances 64 and 32 inside a thread, 16 .. 1 across
-lanes) and of its persistent chunk walk is held against the plain version:
-the only CPU check of the kernel's index logic.
+A model of the two-slot pipelines' persistent chunk walk (rows 17 and 19)
+checks that every chunk is taken once; the stage pipeline's model is
+`test_torch_dma_stages_regs.py`.
 """
 
 import pathlib
@@ -166,56 +165,6 @@ def test_stage_twiddles_are_the_tpu_rows():
         w, ws = common.twiddle_row(s, CPU)
         assert np.array_equal(cv.to_u64(w), _words(wlo[s][None], whi[s][None])[0])
         assert np.array_equal(cv.to_u64(ws), _words(slo[s][None], shi[s][None])[0])
-
-
-def _kernel_model_stages(x, nstages):
-    """csrc/probe_dma.cu's StagesStep on (nb, 8192) uint64 words in NumPy:
-    chunk c is half c & 1 of polynomial c >> 1, 32 rows of 128; a warp's
-    thread `lane` holds v[j] = row[lane + 32 j]; a distance t >= 32 pairs
-    (j, j + t/32) inside the thread, t < 32 the thread with lane ^ t; the
-    twiddle index is 2^s + (position of the lower word >> (13 - s))."""
-    w, ws = (cv.to_u64(t) for t in common.tables(CPU))
-    q, q2 = np.uint64(common.Q), np.uint64(2 * common.Q)
-
-    def bfly(u, v, k):
-        up = np.where(u >= q2, u - q2, u)
-        t = ((v.astype(object) * ws[k].astype(object)) >> 64).astype(np.uint64)
-        y = v * w[k] - t * q
-        return up + y, up + q2 - y
-
-    out = np.empty_like(x)
-    lane = np.arange(32)
-    with np.errstate(over="ignore"):
-        for c in range(2 * x.shape[0]):
-            for r in range(32):
-                row = (c & 1) * 32 + r
-                base = row * LANES + lane
-                v = [x[c >> 1, base + 32 * j].copy() for j in range(4)]
-                for s in range(6, 6 + nstages):
-                    sh, t = 13 - s, 1 << (12 - s)
-                    if t >= 32:
-                        d = t >> 5
-                        for j in (0, 1, 2, 3):
-                            if not j & d:
-                                v[j], v[j + d] = bfly(v[j], v[j + d],
-                                                      (1 << s) + ((base + 32 * j) >> sh))
-                    else:
-                        upper = (lane & t) != 0
-                        for j in range(4):
-                            p = v[j][lane ^ t]
-                            a, b = np.where(upper, p, v[j]), np.where(upper, v[j], p)
-                            a, b = bfly(a, b, (1 << s) + ((base + 32 * j) >> sh))
-                            v[j] = np.where(upper, b, a)
-                for j in range(4):
-                    out[c >> 1, base + 32 * j] = v[j]
-    return out
-
-
-@pytest.mark.parametrize("nstages", [1, 7])
-def test_kernel_stage_schedule_model(nstages):
-    x = cv.to_u64(common.resident_data(2, CPU, seed=9))
-    want = cv.to_u64(dma_bisect_stages.stages(cv.from_u64(x, CPU), nstages))
-    assert np.array_equal(_kernel_model_stages(x, nstages), want)
 
 
 @pytest.mark.parametrize("nchunks", [1, 16, 32, 133, 266, 8192])
