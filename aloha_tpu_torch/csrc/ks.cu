@@ -44,6 +44,7 @@
 // (PERF.md §6).
 #include <initializer_list>
 
+#include "device_once.cuh"
 #include "ntt_regs.cuh"
 
 extern "C" int aloha_ntt_cluster(int device, int M, int nb, int logn, int inverse);  // csrc/ntt.cu
@@ -52,8 +53,6 @@ namespace {
 
 using ntt_regs::End;
 using ntt_regs::Geometry;
-
-constexpr int MAX_DEVICES = 64;
 
 // Resident CTAs an SM a kernel is compiled for: one CTA a polynomial keeps
 // one an SM (128 registers a thread; the serving launches are below a
@@ -294,12 +293,8 @@ ks_tail_kernel(const u64* __restrict__ nd, const u64* __restrict__ rider,
 template <int C, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), bool (&attribute_set)[MAX_DEVICES], int device,
                    dim3 grid, int threads, int smem, cudaStream_t stream, Args... args) {
-  if (!attribute_set[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attribute_set[device] = true;
-  }
+  cudaError_t err = smem_once(kernel, smem, device, attribute_set);
+  if (err != cudaSuccess) return err;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = C;
@@ -312,8 +307,7 @@ cudaError_t launch(void (*kernel)(KArgs...), bool (&attribute_set)[MAX_DEVICES],
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = C > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

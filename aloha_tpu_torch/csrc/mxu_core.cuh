@@ -30,7 +30,6 @@ constexpr int SLOTS = 4;                       // table ring slots
 constexpr unsigned TILE = 16384;               // bytes of a slot and of a stage in the stream
 constexpr unsigned KBLOCK = LANES * LANES;     // a 128-row k-block of 128 bytes
 constexpr int LANE_STAGES = NDIG * NDIG;       // (j, plane kk)
-constexpr int MAX_DEVICES = 64;
 
 enum Epilogue { FOLD = 0, XOR = 1 };
 

@@ -38,11 +38,10 @@
 // of the polynomial's instructions; the words are the same.  C = 8 (two
 // warps a CTA at n = 8192) was no faster than 4 on the H100 and has no
 // instance (PERF.md §6).
+#include "device_once.cuh"
 #include "ntt_regs.cuh"
 
 namespace {
-
-constexpr int MAX_DEVICES = 64;
 
 // The largest cluster of a length-2^logn transform: T/C >= 32 threads a
 // CTA, C <= 4; none for an inverse below n = 4096, where a cluster was no
@@ -58,12 +57,8 @@ cudaError_t launch(int device, const u64* x, u64* y, const u64* w, const u64* ws
   auto kernel = ntt_regs::ntt_regs_kernel<LOGN, INV, C>;
   const int smem = ntt_regs::smem_bytes<LOGN, C, INV>();
   static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
-  if (!attribute_set[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attribute_set[device] = true;
-  }
+  cudaError_t err = smem_once(kernel, smem, device, attribute_set);
+  if (err != cudaSuccess) return err;
   const int vec = !(((size_t)x | (size_t)y) & 15);
   if constexpr (C == 1) {
     kernel<<<dim3(nb, M), G::THREADS, smem, stream>>>(x, y, w, ws, qs, nb, vec);
@@ -80,8 +75,8 @@ cudaError_t launch(int device, const u64* x, u64* y, const u64* w, const u64* ws
     cfg.stream = stream;
     cfg.attrs = &cluster;
     cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, y, w, ws, qs, nb, vec);
-    if (err != cudaSuccess) return err;
+    if ((err = cudaLaunchKernelEx(&cfg, kernel, x, y, w, ws, qs, nb, vec)) != cudaSuccess)
+      return err;
   }
   return cudaGetLastError();
 }
@@ -110,15 +105,6 @@ cudaError_t launch_dir(int device, const u64* x, u64* y, const u64* w, const u64
                  : launch_cluster<LOGN, false>(device, x, y, w, ws, qs, M, nb, C, stream);
 }
 
-// The device's SM count, read once; 0 when it cannot be read.
-int sm_count(int device) {
-  static int sms[MAX_DEVICES];
-  if (!sms[device] &&
-      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    sms[device] = 0;
-  return sms[device];
-}
-
 }  // namespace
 
 // The cluster a launch of M x nb length-2^logn transforms takes: 1 when its
@@ -129,8 +115,8 @@ int sm_count(int device) {
 // cost more than they gain.  0 when the SM count cannot be read.
 extern "C" int aloha_ntt_cluster(int device, int M, int nb, int logn, int inverse) {
   if (device < 0 || device >= MAX_DEVICES || logn < 0 || logn > 14) return 0;
-  const int sms = sm_count(device);
-  if (!sms) return 0;
+  int sms = 0;
+  if (sm_count(device, &sms) != cudaSuccess) return 0;
   const long long ctas = (long long)nb * M;
   const int most = max_cluster(logn, inverse);
   if (ctas >= sms || most == 1) return 1;

@@ -81,6 +81,7 @@
 // clock: a wgmma at N = 64 reads 4 KiB of operands in its 32 clocks, so
 // the ring's copies, the splits and the epilogue's stores wait for the
 // products' operand reads.
+#include "device_once.cuh"
 #include "mxu_core.cuh"  // the transform's device code
 
 namespace {
@@ -133,12 +134,8 @@ cudaError_t launch(int device, const void* x, void* y, const void* stream, const
                    const void* tws, const void* crow, const void* ccol, const void* qs, int M,
                    int nb, int k, int inverse, cudaStream_t s) {
   static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
-  if (!attribute_set[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ntt_mxu_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Ring<R>::SMEM);
-    if (err != cudaSuccess) return err;
-    attribute_set[device] = true;
-  }
+  const cudaError_t err = smem_once(ntt_mxu_kernel<R>, (int)Ring<R>::SMEM, device, attribute_set);
+  if (err != cudaSuccess) return err;
   ntt_mxu_kernel<R><<<dim3(nb, M), TF_THREADS, Ring<R>::SMEM, s>>>(
       (const u64*)x, (u64*)y, (const signed char*)stream, (const u64*)tw, (const u64*)tws,
       (const u64*)crow, (const u64*)ccol, (const u64*)qs, nb, k, inverse);

@@ -82,6 +82,7 @@
 // stages' Shoup products stay under it up to 7 stages).
 #include <cuda_runtime.h>
 
+#include "device_once.cuh"
 #include "modarith.cuh"
 #include "tensor_map.cuh"  // CUtensorMap, encode_tiled
 
@@ -95,7 +96,6 @@ constexpr int THREADS = 512;
 constexpr u32 CHUNK = WORDS * sizeof(u32);  // bytes of one slot: 32 KiB
 constexpr int VEC = WORDS / 4 / THREADS;  // uint4 per thread per block: 4
 constexpr size_t BARRIER_BYTES = 16;  // the mbarriers, after the slots
-constexpr int MAX_DEVICES = 64;
 
 // ------------------------------------------------- bulk copies, mbarriers
 __device__ __forceinline__ u32 smem_addr(const void* p) {
@@ -287,20 +287,15 @@ two_slots(const u8* __restrict__ x, u8* __restrict__ y, int nchunks, Op op) {
 template <class Op>
 cudaError_t launch(int device, void (*kernel)(const u8*, u8*, int, Op), int nslots, int nchunks,
                    void* stream, const void* x, void* y, const Op& op) {
-  static int sms[MAX_DEVICES];  // 0 until the device's first launch
+  static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
   const size_t smem = nslots * CHUNK + BARRIER_BYTES;
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int sms = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (!sms[device]) {
-    int n = 0;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)) != cudaSuccess)
-      return err;
-    sms[device] = n;
-  }
-  const int grid = nchunks < sms[device] ? nchunks : sms[device];
+  if (err != cudaSuccess || (err = sm_count(device, &sms)) != cudaSuccess ||
+      (err = smem_once(kernel, (int)smem, device, attribute_set)) != cudaSuccess)
+    return err;
+  const int grid = nchunks < sms ? nchunks : sms;
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const u8*)x, (u8*)y, nchunks, op);
   return cudaGetLastError();
 }
@@ -503,28 +498,28 @@ cudaError_t encode_chunks_map(CUtensorMap* map, const void* p, int nb) {
 template <int NST>
 cudaError_t launch_stages(int device, const void* x, void* y, const void* w, const void* ws,
                           u64 q, int nb, void* stream) {
-  static int sms[MAX_DEVICES], ctas[MAX_DEVICES];  // 0 until the device's first launch
+  static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
+  static int ctas[MAX_DEVICES];            // 0 until the device's first launch
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if ((size_t)w % 16 || (size_t)ws % 16) return cudaErrorMisalignedAddress;
+  int sms = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (!sms[device]) {
-    int n = 0, k = 0;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(stages_ring<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)ST_SMEM)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, stages_ring<NST>, ST_THREADS,
+  if (err != cudaSuccess || (err = sm_count(device, &sms)) != cudaSuccess ||
+      (err = smem_once(stages_ring<NST>, (int)ST_SMEM, device, attribute_set)) != cudaSuccess)
+    return err;
+  if (!ctas[device]) {
+    int k = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, stages_ring<NST>, ST_THREADS,
                                                              ST_SMEM)) != cudaSuccess)
       return err;
     if (k < 1) return cudaErrorInvalidConfiguration;
     ctas[device] = k;
-    sms[device] = n;
   }
   CUtensorMap xmap, ymap;
   if ((err = encode_chunks_map(&xmap, x, nb)) != cudaSuccess ||
       (err = encode_chunks_map(&ymap, y, nb)) != cudaSuccess)
     return err;
-  const int nchunks = 2 * nb, most = ctas[device] * sms[device];
+  const int nchunks = 2 * nb, most = ctas[device] * sms;
   stages_ring<NST><<<nchunks < most ? nchunks : most, ST_THREADS, ST_SMEM, (cudaStream_t)stream>>>(
       xmap, ymap, (const u64*)w, (const u64*)ws, q, nchunks);
   return cudaGetLastError();

@@ -83,6 +83,7 @@
 // 128 * 128 operations per repetition over 1,979 TOP/s (the dense wgmma
 // peak).  Of the parts, full and mxu carry 1.007e8 int8 MACs per
 // transform; vpu only integer instructions (probes/probe_mxu_parts.OPS).
+#include "device_once.cuh"
 #include "mxu_core.cuh"
 
 namespace {
@@ -333,13 +334,9 @@ cudaError_t launch_parts(int device, const void* x, void* y, const void* stream,
                          const void* tws, const void* crow, const void* ccol, u64 q, int nb,
                          int reps, cudaStream_t s) {
   static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
-  if (!attribute_set[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(mxu_parts_kernel<VARIANT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Ring<PARTS_R>::SMEM);
-    if (err != cudaSuccess) return err;
-    attribute_set[device] = true;
-  }
+  const cudaError_t err =
+      smem_once(mxu_parts_kernel<VARIANT>, (int)Ring<PARTS_R>::SMEM, device, attribute_set);
+  if (err != cudaSuccess) return err;
   mxu_parts_kernel<VARIANT><<<nb, TF_THREADS, Ring<PARTS_R>::SMEM, s>>>(
       (const u64*)x, (u64*)y, (const signed char*)stream, (const u64*)tw, (const u64*)tws,
       (const u64*)crow, (const u64*)ccol, q, reps, 0);
@@ -352,16 +349,13 @@ cudaError_t launch_parts(int device, const void* x, void* y, const void* stream,
 // wimg: w_image(w), (8 * 128 * 128,) int8, 16-byte aligned; reps >= 0.
 extern "C" int aloha_probe_mxu_rate(int device, const void* x, void* y, const void* wimg, int M,
                                     int reps, void* stream) {
-  static bool attribute_set[64];  // per device: the kernel's shared-memory size
-  if (M <= 0 || M % RATE_ROWS || device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+  static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
+  if (M <= 0 || M % RATE_ROWS || device < 0 || device >= MAX_DEVICES)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!attribute_set[device]) {
-    err = cudaFuncSetAttribute(mxu_rate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)RATE_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set[device] = true;
-  }
+  if (err != cudaSuccess ||
+      (err = smem_once(mxu_rate_kernel, (int)RATE_SMEM, device, attribute_set)) != cudaSuccess)
+    return (int)err;
   CUtensorMap xmap, ymap;
   if ((err = encode_planes_map(&xmap, x, NDIG, M, NDIG, RATE_ROWS)) != cudaSuccess ||
       (err = encode_planes_map(&ymap, y, NDIG, M, NDIG, RATE_ROWS)) != cudaSuccess)

@@ -59,6 +59,7 @@
 //
 // Bound on Hopper: integer issue, the step's INT32 instructions over the
 // SMs' INT32 lanes (probes/op_probe.OPS); no HBM traffic per repetition.
+#include "device_once.cuh"
 #include "ntt_regs.cuh"
 
 namespace {
@@ -67,7 +68,6 @@ using G = ntt_regs::Geometry<13>;
 constexpr int N = 1 << 13;
 constexpr int R = G::R;
 constexpr int P = 1;  // the owner map of forward pass 1
-constexpr int MAX_DEVICES = 64;
 constexpr int SH = 5;  // the distance 2^5 the C entry passes
 constexpr size_t SMEM = sizeof(u64) * N;  // v6's exchange
 static_assert(G::T == ALOHA_THREADS && R == 16 && G::regbit(P, 0) == SH &&
@@ -186,12 +186,8 @@ int launch(int device, const u64* x, u64* y, const u64* w, const u64* ws, u64 q,
   constexpr size_t smem = V == 6 ? SMEM : 0;
   if constexpr (V == 6) {
     static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
-    if (!attribute_set[device]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          probe_ops_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      attribute_set[device] = true;
-    }
+    const cudaError_t err = smem_once(probe_ops_kernel<V>, (int)smem, device, attribute_set);
+    if (err != cudaSuccess) return (int)err;
   }
   probe_ops_kernel<V><<<nb, G::T, smem, stream>>>(x, y, w, ws, q, reps, SH);
   return (int)cudaGetLastError();

@@ -76,13 +76,13 @@
 // each; one warp shuffle a clock an SM).
 #include <climits>
 
+#include "device_once.cuh"
 #include "ntt_regs.cuh"
 
 namespace {
 
 constexpr int LOGN = 13;
 constexpr int N = 1 << LOGN;
-constexpr int MAX_DEVICES = 64;
 
 enum StageMode { FULL = 0, ROLLSONLY = 1, NOROLL = 2 };
 enum LaneMode { LANE_FULL = 0, STAT_T = 1, STAT_S = 2, NOBFLY = 3 };
@@ -350,12 +350,8 @@ cudaError_t launch_stage_modes(int device, const u64* x, u64* y, const u64* w, c
   constexpr int smem = MODE == NOROLL ? 0 : SMEM;
   if constexpr (smem > 0) {
     static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
-    if (!attribute_set[device]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          stage_modes_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      attribute_set[device] = true;
-    }
+    const cudaError_t err = smem_once(stage_modes_kernel<MODE>, smem, device, attribute_set);
+    if (err != cudaSuccess) return err;
   }
   const int vec = !(((size_t)x | (size_t)y) & 15);
   stage_modes_kernel<MODE><<<nb, T, smem, stream>>>(x, y, w, ws, q, reps, vec);

@@ -248,6 +248,29 @@ def marginal_ns(run, reps: tuple):
     return marginal(run, reps)[:3]
 
 
+def small_call(name: str, run, plain, args, card: str) -> None:
+    """Hold run(*args, SMALL[1]) equal to plain(*args, SMALL[1]) (exit on
+    a difference), then print the call's `time_ms` and `graph_ms`, and its
+    `graph_ms` at 0 repetitions (the launch's fixed part)."""
+    if not torch.equal(run(*args, SMALL[1]), plain(*args, SMALL[1])):
+        raise SystemExit(f"{name}: the kernel differs from its plain version")
+    call = lambda: run(*args, SMALL[1])  # noqa: E731
+    eager, graph, fixed = time_ms(call), graph_ms(call), graph_ms(lambda: run(*args, 0))
+    print(f"nb={args[0].shape[0]} reps={SMALL[1]}: eager {eager * 1e3:.2f} us, graph "
+          f"{graph * 1e3:.2f} us per call (reps=0: graph {fixed * 1e3:.2f} us) on {card}",
+          flush=True)
+
+
+def print_marginal(m, reps: tuple, what: str, bounds: dict, card: str) -> None:
+    """Print `marginal`'s m (ns, t_lo, t_hi, spread) at NB_TIME and REPS
+    `reps`, beside `bounds` (ns by name; the first is the bound)."""
+    ns, t_lo, t_hi, spread = m
+    print(f"nb={NB_TIME}: {ns:.3f} ns per block per repetition ({what}) "
+          f"t({reps[0]})={t_lo:.4f} ms t({reps[1]})={t_hi:.4f} ms spread={spread:.4f} ms "
+          f"bound_ns={next(iter(bounds.values())):.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in bounds.items()) + f") on {card}", flush=True)
+
+
 def card() -> str:
     """The card as `nvidia-smi --query-gpu=name,power.limit` gives it."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,15 +10,30 @@ index (the TPU's traced fori_loop index; the kernel's loop is not
 unrolled): t = 8192 >> (s + 1) = 64 .. 1, bit = (l & t) != 0, the partner
 p = a[r][(l + t) mod 128] if bit else a[r][(l - t) mod 128], u = bit ? p :
 a, v = bit ? a : p, out = bit ? u - v w[s] : u + v w[s], mod 2^32.  The
-partner wraps around the 128 lanes and its direction mirrors a
-butterfly's: that is the script's function (its NumPy oracle agrees).
+partner wraps around the 128 lanes and is not l ^ t: that is the script's
+function (its NumPy oracle agrees).
 
 The TPU script compiled and ran one call; the port repeats in one launch
-(probes/common.py says why), nb independent blocks, one CTA each.  The
-marginal over REPS at nb = 256 is the time of one repetition.
+(probes/common.py says why).  The kernel keeps each block in registers, 16
+words a thread at 8 threads a row (lane 8 j + i in register j of thread
+i): stages t = 64 .. 8 stay in the thread, t = 4, 2, 1 take one shuffle a
+word.  A switch on the runtime s picks a body compiled for its t.  w's
+rows 6-12 are staged once per CTA into shared memory in the owner map's
+order; min(nb, SMs) persistent CTAs walk the blocks.  The marginal over
+REPS at nb = 256 is the time of one repetition.
 
-Bound on the H100: integer issue, `OPS` INT32 instructions per block per
-repetition.
+Bound on the H100, per block per repetition: `NEEDED_OPS` INT32
+instructions (a product and a sum or difference a word a stage) over the
+integer issue peak.  `TABLE_BYTES` of table (the 7 rows) over shared
+memory's 128 bytes a clock an SM is printed beside it as the floor of
+this design, where a thread holds one block and reads its table words
+from shared memory every repetition (registers cannot hold 224 KiB beside
+the block).  It is not the function's floor: w is the same for every
+block, and a thread holding the same lanes of two blocks would read each
+table word once for both, half those bytes, which take as long as the
+operations.  `OPS`, frozen, also charged each word the bit test, the
+partner lane and the selects, which the owner map settles at compile
+time.
 """
 
 from __future__ import annotations
@@ -35,11 +50,37 @@ from aloha_tpu_torch.probes import common as C
 ROWS, LANES, LOGN = 64, 128, 13
 STAGES = range(6, LOGN)
 REPS = (20, 220)
-#: INT32 instructions per word and stage: the bit test, the partner lane
-#: (l +- t, select, mask), the u and v selects, the product, the sum and
-#: the difference, the select of the result
+#: INT32 instructions per word and stage, frozen (the first port's count):
+#: the bit test, the partner lane (l +- t, select, mask), the u and v
+#: selects, the product, the sum and the difference, the select of the result
 OPS_PER_WORD = 1 + 3 + 2 + 1 + 2 + 1
 OPS = len(STAGES) * ROWS * LANES * OPS_PER_WORD
+#: the work the function needs: a product and a sum or difference a word a stage
+NEEDED_OPS = len(STAGES) * ROWS * LANES * 2
+#: the table rows the stages read (w[6..12]), bytes: read once a launch from
+#: device memory, and from shared memory every repetition
+TABLE_BYTES = len(STAGES) * ROWS * LANES * 4
+INT32_LANES_PER_SM = 128  # the integer issue peak's lanes (chip_smoke.py's INT32_LANES / 132)
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory
+
+
+#: csrc/probe_dyn.cu's kernels, and the SASS opcodes counted in them:
+#: local-memory loads and stores, shuffles, shared-memory loads and stores,
+#: barriers
+KERNELS = ("dynstage_kernel", "dynsub_kernel")
+SASS_OPS = ("LDL", "STL", "SHFL", "LDS", "STS", "BAR")
+
+
+def bounds_ns(int32_peak: float) -> dict:
+    """ns per block per repetition: {"operations": NEEDED_OPS over the
+    integer issue peak (132 SMs x 128 lanes x clocks.max.sm, INT32 a
+    second), the bound; "one block a thread": TABLE_BYTES over 128 bytes a
+    clock on each of those SMs, the floor of this design's table reads;
+    "frozen OPS": OPS over the peak}."""
+    sm_clocks = int32_peak / INT32_LANES_PER_SM
+    return {"operations": NEEDED_OPS / int32_peak * 1e9,
+            "one block a thread": TABLE_BYTES / (SMEM_BYTES_PER_CLOCK * sm_clocks) * 1e9,
+            "frozen OPS": OPS / int32_peak * 1e9}
 
 
 def data(nb: int, device, seed: int = 1) -> torch.Tensor:
@@ -52,6 +93,25 @@ def table(device, seed: int = 0) -> torch.Tensor:
     """The script's table w (13, 64, 128), entries in [1, 97), as int32."""
     w = np.random.default_rng(seed).integers(1, 97, size=(LOGN, ROWS, LANES), dtype=np.uint32)
     return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+#: batches of the card's edge sweep: one block, around one CTA an SM, two
+#: blocks a CTA of the persistent kernel
+EDGE_NBS = (1, 131, 132, 133, 264)
+#: the words at the ends of u32 and around its sign bit
+EDGE_WORDS = (0, 1, 1 << 31, (1 << 32) - 1)
+
+
+def edge_data(nb: int, device, seed: int = 2) -> torch.Tensor:
+    """(nb, 64, 128) int32 bit patterns of EDGE_WORDS, seeded."""
+    x = np.random.default_rng(seed).choice(np.array(EDGE_WORDS, dtype=np.uint32),
+                                           size=(nb, ROWS, LANES))
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+def edge_table(device, seed: int = 3) -> torch.Tensor:
+    """A table w (13, 64, 128) of EDGE_WORDS, seeded."""
+    return edge_data(LOGN, device, seed)
 
 
 def _check(x, w, reps: int) -> None:
@@ -113,12 +173,14 @@ def measure(device):
 
 
 def main(argv=None):
+    """One call at nb, reps = C.SMALL checked and timed (`C.small_call`),
+    then the marginal at nb = NB_TIME beside its bounds."""
     C.names(sys.argv[1:] if argv is None else argv, ())
     card = C.require_card()
-    ns, t_lo, t_hi, spread = measure(torch.device("cuda", 0))
-    print(f"nb={C.NB_TIME}: {ns:.3f} ns per block per repetition ({len(STAGES)} stages) "
-          f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms spread={spread:.4f} ms "
-          f"ops/block/rep={OPS} on {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    C.small_call("probe_dynstage", dynstage, dynstage_plain,
+                 (data(C.SMALL[0], dev), table(dev)), card)
+    C.print_marginal(measure(dev), REPS, f"{len(STAGES)} stages", bounds_ns(C.int32_peak()), card)
 
 
 if __name__ == "__main__":

@@ -10,11 +10,17 @@ t = 64 >> (s + 1) = 32 .. 1, bit = (r & t) != 0, p = a[(r + t) mod 64][l]
 if bit else a[(r - t) mod 64][l], out = bit ? p - a : a + p, mod 2^32.
 
 The TPU script compiled and ran one call; the port repeats in one launch
-(probes/common.py says why), nb independent blocks, one CTA each.  The
-marginal over REPS at nb = 256 is the time of one repetition.
-
-Bound on the H100: integer issue, `OPS` INT32 instructions per block per
+(probes/common.py says why), nb independent blocks, one CTA of 128 threads
+each.  Thread l holds column l in registers (64 words, register r = row
+r), so a stage's partner is register (r +- t) mod 64 of the same thread:
+all six stages run in registers, a switch on the runtime s picking a body
+compiled for its t.  The marginal over REPS at nb = 256 is the time of one
 repetition.
+
+Bound on the H100: integer issue, `NEEDED_OPS` INT32 instructions per
+block per repetition (a sum or difference a word a stage).  `OPS`, frozen,
+also charged each word its row, the bit test, the partner row and the
+select, which the owner map settles at compile time.
 """
 
 from __future__ import annotations
@@ -30,10 +36,20 @@ from aloha_tpu_torch.probes.probe_dynstage import LANES, ROWS, data, from_u32, t
 
 STAGES = range(6)
 REPS = (20, 220)
-#: INT32 instructions per word and stage: the row and the bit test, the
-#: partner row (r +- t, select, mask), the sum and the difference, the select
+#: INT32 instructions per word and stage, frozen (the first port's count):
+#: the row and the bit test, the partner row (r +- t, select, mask), the sum
+#: and the difference, the select
 OPS_PER_WORD = 2 + 3 + 2 + 1
 OPS = len(STAGES) * ROWS * LANES * OPS_PER_WORD
+#: the work the function needs: a sum or difference a word a stage
+NEEDED_OPS = len(STAGES) * ROWS * LANES
+
+
+def bounds_ns(int32_peak: float) -> dict:
+    """ns per block per repetition: {"operations": NEEDED_OPS over the
+    integer issue peak (INT32 a second), the bound; "frozen OPS": OPS over
+    it}."""
+    return {"operations": NEEDED_OPS / int32_peak * 1e9, "frozen OPS": OPS / int32_peak * 1e9}
 
 
 def _check(x, reps: int) -> None:
@@ -81,12 +97,13 @@ def measure(device):
 
 
 def main(argv=None):
+    """One call at nb, reps = C.SMALL checked and timed (`C.small_call`),
+    then the marginal at nb = NB_TIME beside its bounds."""
     C.names(sys.argv[1:] if argv is None else argv, ())
     card = C.require_card()
-    ns, t_lo, t_hi, spread = measure(torch.device("cuda", 0))
-    print(f"nb={C.NB_TIME}: {ns:.3f} ns per block per repetition ({len(STAGES)} stages) "
-          f"t({REPS[0]})={t_lo:.4f} ms t({REPS[1]})={t_hi:.4f} ms spread={spread:.4f} ms "
-          f"ops/block/rep={OPS} on {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    C.small_call("probe_dynsub", dynsub, dynsub_plain, (data(C.SMALL[0], dev),), card)
+    C.print_marginal(measure(dev), REPS, f"{len(STAGES)} stages", bounds_ns(C.int32_peak()), card)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,10 @@ Phases, each printing its own line; any failure exits nonzero:
      (ntt_regs_kernel<13, false, 1>), whose register passes they run; the
      registers and spill of the copy pipeline's 8 stages instances
      (stages_ring<0..7>) beside rows 17 and 19's two_slots, failing unless
-     ptxas reports 8;
+     ptxas reports 8; the registers, spill and SASS of csrc/probe_dyn.cu's
+     two kernels, failing on a spill or a local-memory load or store (LDL,
+     STL), and unless dynsub_kernel's holds no shuffle, shared-memory
+     access or barrier;
   3. kernels: ntt, ks_head, ks_tail, ntt_mxu (q0, q1 and P, both
      directions) and the ntt_mxu chain at N=8192 against their plain
      PyTorch versions on the card (torch.equal), timed with CUDA events;
@@ -117,13 +120,19 @@ Phases, each printing its own line; any failure exits nonzero:
      264, past one wave at one CTA an SM; 0-3 repetitions; polynomials of
      0, q - 1 and 2^63 - 1 beside random ones), the forward transforms and
      the stage modes on one (nb = 1, 3, 133 and 264, 0-3 repetitions, and
-     nb = 3 on the edge words 0, q - 1, 2q and 4q - 1);
+     nb = 3 on the edge words 0, q - 1, 2q and 4q - 1), the two
+     runtime-stage probes in a graph burst at nb=8, 3 repetitions, and on
+     one (nb = 1, 131, 132, 133 and 264, 0-3 repetitions, and nb = 3 on
+     blocks and a table of the words 0, 1, 2^31 and 2^32 - 1);
      then the
      probes' own measurement at nb=256: the marginal ns per polynomial
      (block) per repetition of each, beside its bound (int8 MACs over the
      tensor-core peak, INT32 instructions over the integer issue peak, the
-     larger; the stage modes' count is the work the function needs,
-     NEEDED_OPS, beside the frozen OPS), with all eight kernels launched.
+     larger; the stage modes' and the runtime-stage probes' count is the
+     work the function needs, NEEDED_OPS, beside the frozen OPS; the lane
+     stages' table bytes through shared memory at 128 bytes a clock an SM,
+     the floor of their one-block-a-thread design, are printed beside the
+     bound), with all eight kernels launched.
      Then the four copy pipelines (csrc/probe_dma.cu:
      dma_bisect's one slot in both modes, the double-buffered roll and
      row-pair swap, the table read, 0-7 NTT lane stages) against their
@@ -214,7 +223,7 @@ def phase_build():
             fail(f"{what} is not on integer warpgroup products alone: {sass}")
     registers = ntt_registers()
     return (registers, ks_registers(), lane_registers(), ops_registers(), parts_registers(),
-            stage_registers(registers), dma_registers())
+            stage_registers(registers), dma_registers(), dyn_registers())
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -337,6 +346,34 @@ def dma_registers() -> dict:
           + ", ".join(f"{k} {'/'.join(map(str, v))}" for k, v in usage.items())
           + "; beside two_slots " + ", ".join(f"{k} {'/'.join(map(str, v))}"
                                               for k, v in slots.items()), flush=True)
+    return usage
+
+
+def dyn_registers() -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} of
+    csrc/probe_dyn.cu's dynstage_kernel and dynsub_kernel, from ptxas'
+    report; fails on a spill or a local-memory access in their SASS (the
+    design holds each block in registers), and unless dynsub's SASS holds
+    no shuffle, shared-memory access or barrier."""
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.probes.probe_dynstage import KERNELS, SASS_OPS
+
+    usage, sass = {}, {}
+    for kernel in KERNELS:
+        found = list(_build.ptxas_usage(kernel).values())
+        if len(found) != 1:
+            fail(f"ptxas reported {len(found)} instances of {kernel}, not 1")
+        usage[kernel] = list(found[0])
+        sass[kernel] = _build.sass_counts(kernel, SASS_OPS)
+    print("build: probe_dyn registers/spill stores/spill loads, SASS " + "/".join(SASS_OPS) + ": "
+          + ", ".join(f"{k} {'/'.join(map(str, usage[k]))} "
+                      f"{'/'.join(str(sass[k][o]) for o in SASS_OPS)}" for k in usage), flush=True)
+    for k in usage:
+        if usage[k][1] or usage[k][2] or sass[k]["LDL"] or sass[k]["STL"]:
+            fail(f"{k}: a spill or a local-memory access, ptxas {usage[k]}, SASS {sass[k]}")
+    if any(sass["dynsub_kernel"][o] for o in ("SHFL", "LDS", "STS", "BAR")):
+        fail(f"dynsub_kernel: no shuffle, shared memory or barrier expected, SASS "
+             f"{sass['dynsub_kernel']}")
     return usage
 
 
@@ -1558,10 +1595,11 @@ def parts_work(variant: str, nb: int, reps: int):
     return nbytes, ops, None
 
 
-def dyn_work(nb: int, reps: int, ops_per_rep: int, table: bool):
-    """One dyn-probe launch: nb (64, 128) u32 blocks in and out, the
-    (13, 64, 128) table once when `table`, `reps` repetitions."""
-    return 2 * nb * 8192 * 4 + (13 * 8192 * 4 if table else 0), nb * reps * ops_per_rep, "int32"
+def dyn_work(nb: int, reps: int, ops_per_rep: int, table_bytes: int):
+    """One dyn-probe launch: nb (64, 128) u32 blocks in and out, the table
+    rows the stages read (`table_bytes`) once, `reps` repetitions of
+    `ops_per_rep` INT32 instructions (NEEDED_OPS) a block."""
+    return 2 * nb * 8192 * 4 + table_bytes, nb * reps * ops_per_rep, "int32"
 
 
 def dma_work(nb: int, block_bytes: int, once_bytes: int, ops_per_block: int):
@@ -1729,10 +1767,11 @@ def phase_probes(card: str, dev, results: dict):
     more += [("probe_dynstage", "lanes",
               lambda nb: (probe_dynstage.data(nb, dev), probe_dynstage.table(dev)),
               probe_dynstage.dynstage, probe_dynstage.dynstage_plain,
-              lambda nb, r: dyn_work(nb, r, probe_dynstage.OPS, True), probe_dynstage.REPS),
+              lambda nb, r: dyn_work(nb, r, probe_dynstage.NEEDED_OPS, probe_dynstage.TABLE_BYTES),
+              probe_dynstage.REPS),
              ("probe_dynsub", "rows", lambda nb: (probe_dynstage.data(nb, dev),),
               probe_dynsub.dynsub, probe_dynsub.dynsub_plain,
-              lambda nb, r: dyn_work(nb, r, probe_dynsub.OPS, False), probe_dynsub.REPS)]
+              lambda nb, r: dyn_work(nb, r, probe_dynsub.NEEDED_OPS, 0), probe_dynsub.REPS)]
     t0 = time.perf_counter()
     for kernel, label, inputs, run, plain, _, reps in more:
         args, r = inputs(nb), reps[0]
@@ -1777,6 +1816,33 @@ def phase_probes(card: str, dev, results: dict):
     x, w, image = rate_inputs(nb)
     graph_check(results, card, "probe_mxu", f"rate nb={nb} reps=1",
                 lambda: probe_mxu.launch_rate(x, image, 1))
+    xd, wd = probe_dynstage.data(PROBE_NB, dev), probe_dynstage.table(dev)
+    graph_check(results, card, "probe_dynstage", f"lanes nb={PROBE_NB} reps={R}",
+                lambda: probe_dynstage.dynstage(xd, wd, R))
+    graph_check(results, card, "probe_dynsub", f"rows nb={PROBE_NB} reps={R}",
+                lambda: probe_dynsub.dynsub(xd, R))
+    # the runtime-stage probes' edge sweep: one block, around one CTA an SM
+    # and two blocks a CTA of the persistent lanes kernel, 0-3 repetitions,
+    # on seeded words and on blocks and a table of the edge words
+    t0, n_edge = time.perf_counter(), 0
+    dyn_inputs = [(f"nb={b}", probe_dynstage.data(b, dev, seed=b),
+                   probe_dynstage.table(dev, seed=b)) for b in probe_dynstage.EDGE_NBS]
+    dyn_inputs.append(("edge words nb=3", probe_dynstage.edge_data(3, dev),
+                       probe_dynstage.edge_table(dev)))
+    for tag, xe, we in dyn_inputs:
+        for r in OPS_EDGE_REPS:
+            for kernel, run, plain, args in (
+                    ("probe_dynstage", probe_dynstage.dynstage, probe_dynstage.dynstage_plain,
+                     (xe, we)),
+                    ("probe_dynsub", probe_dynsub.dynsub, probe_dynsub.dynsub_plain, (xe,))):
+                label = f"{tag} reps={r}"
+                err = compare(kernel, label, lambda: run(*args, r), lambda: plain(*args, r))
+                results[kernel].append((label, err))
+                n_edge += 1
+    del xd, wd, dyn_inputs
+    print(f"probes: probe_dynstage and probe_dynsub edge sweep, {n_edge} cases equal (nb "
+          f"{probe_dynstage.EDGE_NBS} and the edge words {probe_dynstage.EDGE_WORDS}, reps "
+          f"{OPS_EDGE_REPS}) in {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     _library_rate(card, results, x, w)
     del x, w, image
 
@@ -1844,6 +1910,10 @@ def phase_probes(card: str, dev, results: dict):
         return max(n / PEAK[k] for k, n in ops.items()) * 1e9
 
     int32_ns = lambda ops: ops_ns({"int32": ops})  # noqa: E731
+    # the runtime-stage probes' bounds (NEEDED_OPS), beside the lanes' table
+    # bytes through shared memory at one block a thread and the frozen OPS
+    dyn_bounds = {"probe_dynstage": probe_dynstage.bounds_ns(PEAK["int32"]),
+                  "probe_dynsub": probe_dynsub.bounds_ns(PEAK["int32"])}
     t0 = time.perf_counter()
     measured = {
         "probe_ops": [(v, ns, lo, hi, None, op_probe.REPS, int32_ns(op_probe.OPS[v]))
@@ -1863,9 +1933,9 @@ def phase_probes(card: str, dev, results: dict):
                             for v, ns, lo, hi, spread in probe_mxu_parts.measure(
                                 probe_mxu_parts.VARIANTS, dev)],
         "probe_dynstage": [("lanes", *probe_dynstage.measure(dev), probe_dynstage.REPS,
-                            int32_ns(probe_dynstage.OPS))],
+                            dyn_bounds["probe_dynstage"]["operations"])],
         "probe_dynsub": [("rows", *probe_dynsub.measure(dev), probe_dynsub.REPS,
-                          int32_ns(probe_dynsub.OPS))],
+                          dyn_bounds["probe_dynsub"]["operations"])],
     }
     bytes_ns = D.bound_ns(D.BLOCK_BYTES), "bytes"
     copies = {
@@ -1908,13 +1978,19 @@ def phase_probes(card: str, dev, results: dict):
             if kernel == "probe_mxu_parts":
                 tb = probe_mxu_parts.TABLE_BYTES[label]
                 extra += f" table_bytes={tb} ({per_ns(tb):.1f} GB/s through L2)"
+            by = "operations"
             if kernel in ("probe_fwd_reps", "probe_stage_modes"):
                 frozen = stream_prof3.OPS if label == "fwd" else stream_prof.OPS[label]
                 extra += f" (NEEDED_OPS; the frozen OPS: bound_ns={int32_ns(frozen):.3f})"
                 results.setdefault("ops_bound_ns", {}).setdefault(kernel, {})[label] = (
                     int32_ns(frozen))
+            if kernel in dyn_bounds:
+                b = dyn_bounds[kernel]
+                extra += " (" + ", ".join(f"{k} {v:.3f}" for k, v in b.items()) + ")"
+                results.setdefault("ops_bound_ns", {}).setdefault(kernel, {})[label] = (
+                    b["frozen OPS"])
             print(f"probe {kernel} {label}: marginal_ns={ns:.3f} per polynomial per repetition "
-                  f"bound_ns={bound_ns:.3f} (operations) t({reps[0]})={t_lo:.4f} ms "
+                  f"bound_ns={bound_ns:.3f} ({by}) t({reps[0]})={t_lo:.4f} ms "
                   f"t({reps[1]})={t_hi:.4f} ms nb={common.NB_TIME}{extra} on {card}", flush=True)
             results.setdefault("marginal", {}).setdefault(kernel, {})[label] = (ns, bound_ns)
     parts_ns = {v: results["marginal"]["probe_mxu_parts"][v][0] for v in probe_mxu_parts.VARIANTS}
@@ -1933,7 +2009,7 @@ def phase_probes(card: str, dev, results: dict):
 REDESIGNED = {"probe_mxu", "probe_dma_copy", "ntt_mxu", "ntt_mxu_chain", "ntt",
               "ntt_with_tables", "ntt_grid", "ks_head", "ks_tail", "aut", "probe_lane_stages",
               "probe_ops", "probe_mxu_parts", "probe_fwd_reps", "probe_stage_modes",
-              "probe_dma_stages"}
+              "probe_dma_stages", "probe_dynstage", "probe_dynsub"}
 
 
 def step2_order(kernels) -> list:
@@ -1966,7 +2042,7 @@ def main():
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
         (registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_,
-         stage_registers_, dma_registers_) = phase_build()
+         stage_registers_, dma_registers_, dyn_registers_) = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -2069,10 +2145,13 @@ def main():
         if name == "probe_mxu_parts":
             entry["registers"] = parts_registers_
             entry["full_vs_chain_ns"] = results["parts_full_vs_chain_ns"]
+        if name in ("probe_fwd_reps", "probe_stage_modes", "probe_dynstage", "probe_dynsub"):
+            entry["ops_bound_ns"] = results["ops_bound_ns"][name]
         if name in ("probe_fwd_reps", "probe_stage_modes"):
             entry["registers"] = ({"full": stage_registers_["full"]} if name == "probe_fwd_reps"
                                   else stage_registers_)
-            entry["ops_bound_ns"] = results["ops_bound_ns"][name]
+        if name in ("probe_dynstage", "probe_dynsub"):
+            entry["registers"] = dyn_registers_[name[6:] + "_kernel"]
         if name == "probe_fwd_reps":
             entry["full_vs_ntt_ns"] = results["fwd_reps_vs_ntt_ns"]
         if name == "probe_dma_stages":

@@ -667,7 +667,10 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
     csrc/probe_dyn.cu equal their plain versions at small shapes, REPS 1
     and 3, and at the measured shape (BP or nb = NB_TIME) at the lower
     REPS; the parts also at EDGE_NBS and 0-3 repetitions on `edge_data`
-    (words of 0, q - 1 and 2^63 - 1); each launch counts once."""
+    (words of 0, q - 1 and 2^63 - 1); the dyn probes also at
+    probe_dynstage.EDGE_NBS (1, 131, 132, 133, 264) and 0-3 repetitions,
+    and on a block (and a table) of the edge words 0, 1, 2^31, 2^32 - 1;
+    each launch counts once."""
     big = probe_common.NB_TIME
     if kind == "rate":
         fn, plain, reps = probe_mxu.digit_products, probe_mxu.digit_products_plain, probe_mxu.REPS
@@ -693,6 +696,14 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
     if kind == "parts":
         edge = lambda nb: (probe_mxu_parts.edge_data(nb, dev),)  # noqa: E731
         cases += [(edge, nb, r) for nb in probe_mxu_parts.EDGE_NBS for r in range(4)]
+    if kind in ("dynstage", "dynsub"):
+        seeded = lambda nb: (probe_dynstage.data(nb, dev, seed=nb),  # noqa: E731
+                             probe_dynstage.table(dev, seed=nb))
+        edge = lambda nb: (probe_dynstage.edge_data(nb, dev),  # noqa: E731
+                           probe_dynstage.edge_table(dev))
+        take = (lambda f: f) if kind == "dynstage" else (lambda f: lambda nb: f(nb)[:1])
+        cases += [(take(seeded), nb, r) for nb in probe_dynstage.EDGE_NBS for r in range(4)]
+        cases += [(take(edge), nb, r) for nb in (1, 3) for r in range(4)]
     for make, nb, r in cases:
         args = make(nb)
         before = counter.launches
@@ -700,6 +711,45 @@ def test_mxu_and_dyn_probe_kernels_match_plain(dev, kind, variant):
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         assert torch.equal(got, plain(*args, r)), (nb, r)
+
+
+def test_dyn_kernels_hold_their_blocks_in_registers(dev):
+    """ptxas reports no spill for csrc/probe_dyn.cu's two kernels and their
+    SASS holds no local-memory load or store; dynsub_kernel's none of
+    shuffles, shared memory or barriers either."""
+    from aloha_tpu_torch import _build
+
+    for kernel in probe_dynstage.KERNELS:
+        usage = list(_build.ptxas_usage(kernel).values())
+        assert len(usage) == 1 and usage[0][1:] == (0, 0), (kernel, usage)
+        sass = _build.sass_counts(kernel, probe_dynstage.SASS_OPS)
+        assert not (sass["LDL"] or sass["STL"]), (kernel, sass)
+        if kernel == "dynsub_kernel":
+            assert not any(sass[o] for o in ("SHFL", "LDS", "STS", "BAR")), sass
+        else:
+            assert sass["SHFL"] and sass["LDS"], sass
+
+
+@pytest.mark.parametrize("bad", ["device=-1", "device=64", "nb=0", "reps=-1"])
+def test_dyn_entries_refuse_bad_arguments(dev, bad):
+    """aloha_probe_dynstage and aloha_probe_dynsub, called through the
+    library, return cudaErrorInvalidValue (1) for a device outside [0,
+    64), nb < 1 or reps < 0, and launch nothing: y keeps its words."""
+    from aloha_tpu_torch import _build
+
+    args = {"device": dev.index, "nb": 1, "reps": 1}
+    key, value = bad.split("=")
+    args[key] = int(value)
+    x, w = probe_dynstage.data(1, dev), probe_dynstage.table(dev)
+    y = torch.zeros_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    assert lib.aloha_probe_dynstage(args["device"], x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                                    args["nb"], args["reps"], stream) == 1
+    assert lib.aloha_probe_dynsub(args["device"], x.data_ptr(), y.data_ptr(), args["nb"],
+                                  args["reps"], stream) == 1
+    torch.cuda.synchronize()
+    assert not y.any()
 
 
 def test_probe_mxu_parts_compile_to_integer_warpgroup_products(dev):
