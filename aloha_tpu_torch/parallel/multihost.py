@@ -2,9 +2,12 @@
 
 The port of `aloha_tpu/parallel/multihost.py`.  Every process calls
 `initialize()`, which reads the environment `torchrun` sets (RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and starts the default
-process group: NCCL for CUDA devices, gloo for the CPU.  A single process
-needs no group, and `initialize()` then does nothing.  `pod_mesh` lays the
+WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and
+starts the default process group: NCCL for CUDA devices, gloo for the CPU
+and for CUDA ranks that share a card (more ranks on a host than cards:
+NCCL refuses two ranks on one device).  A single process needs no group,
+and `initialize()` then does nothing.  `local_device` is the rank's
+device: `cuda:(LOCAL_RANK mod cards)` or the CPU.  `pod_mesh` lays the
 world out as a (dp, coeff) device mesh: batch-parallel groups across hosts,
 the coefficient axis inside each host.
 """
@@ -23,24 +26,39 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=60)
 
 
-def backend_for(device_type: str) -> str:
-    """The process-group backend of a device type: nccl for cuda, gloo for cpu."""
+def backend_for(device_type: str, ranks_per_card: int = 1) -> str:
+    """The process-group backend of a device type: nccl for cuda, gloo for
+    cpu and for cuda ranks that share a card (ranks_per_card > 1)."""
     if device_type == "cuda":
-        return "nccl"
+        return "nccl" if ranks_per_card <= 1 else "gloo"
     if device_type == "cpu":
         return "gloo"
     raise ValueError(f"no process-group backend for device type {device_type!r}")
 
 
+def local_device(device_type: str = "cuda") -> torch.device:
+    """This rank's device: cuda:(LOCAL_RANK mod the cards), or the CPU."""
+    if device_type == "cuda":
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                            % torch.cuda.device_count())
+    return torch.device(device_type)
+
+
 def initialize(device_type: str = "cuda", timeout: datetime.timedelta = TIMEOUT) -> None:
     """Start the default process group from torchrun's environment when
-    WORLD_SIZE > 1; with a single process (or none set) do nothing."""
+    WORLD_SIZE > 1; with a single process (or none set) do nothing.  A CUDA
+    rank selects and initialises its `local_device` first (a device mesh
+    leaves an initialised device as it is)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or dist.is_initialized():
         return
-    backend = backend_for(device_type)
-    if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    ranks_per_card = 1
+    if device_type == "cuda":
+        cards = torch.cuda.device_count()
+        ranks_per_card = -(-int(os.environ.get("LOCAL_WORLD_SIZE", str(world))) // cards)
+        torch.cuda.set_device(local_device("cuda"))
+        torch.cuda.init()
+    backend = backend_for(device_type, ranks_per_card)
     dist.init_process_group(
         backend, rank=int(os.environ["RANK"]), world_size=world, timeout=timeout
     )

@@ -34,7 +34,8 @@ Phases, each printing its own line; any failure exits nonzero:
      a CUDA-graph burst, and a tail that takes a cluster beside the same
      launch forced onto one CTA a polynomial (equal words);
      then ntt at n = 2, 16, 128, 1024, 2048, 4096, 8192 and 16384, both
-     directions, M = 1 and 3, nb = 1, 131, 132, 133 and 264, on words at
+     directions, M = 1, 3 and 4 (the three-limb ring's L+1 moduli), nb = 1,
+     131, 132, 133 and 264, on words at
      the top of its input window (compared); ntt_mxu and its chain (k = 1,
      2, 3) at N = 4096 and 8192, both
      directions, nb = 1, 131, 132, 133 and 264, on words at the ends of
@@ -68,6 +69,22 @@ Phases, each printing its own line; any failure exits nonzero:
      process group of D ranks, D the largest power of two <= the visible
      GPUs (one card: D=1, a world of one): forward equal to ntt_np.ntt on
      the first two polynomials, round trip exact, the kernel launched;
+  6b. ks_shard: parallel.keyswitch_sharded.rotate_sharded (the digit-sharded
+     rotation, one all_reduce of the inner products) at N=8192, L=2, on
+     KS_SHARD_NB ciphertexts over L ranks spawned from the dry run: one
+     rank per card over NCCL with L cards or more, else both on cuda:0 over
+     gloo (NCCL refuses two ranks on one device); each rank's limb
+     word-exact against the plain he_torch.rotate on CPU tensors, its time
+     for one rotation (host clock, synchronised) printed beside one
+     all_reduce of its words and the fused he_torch.rotate of the same
+     ciphertexts, ntt and aut launched on every rank.  Then the three-limb
+     ring (P3, N=8192): ks_head (hoisted and with an automorphism) and
+     ks_tail (shared, batched and single keys) against their plain
+     versions, timed beside their bounds at L = 3; a rotation by 2 and a
+     hoisted rotation by 1 and 3 of B encryptions, decrypting within 1e-4
+     of the rolled slots, ciphertext 0 word-exact against the plain path on
+     CPU tensors, ks_head and ks_tail launched; and one flipped key word,
+     which must change 1-2 words of a[0] only through the fused pair;
   7. multiply: ntt_grid (the grid NTT's wrapper, ops/ntt_pallas, on
      csrc/ntt.cu at one modulus) forward and inverse under q0, q1 and P at
      N=8192, nb=64 (one row at the top of the input window), at nb=16 (the
@@ -169,6 +186,13 @@ BENCH = dict(batch=256, chain_k=64)
 SHARD_NB = 64  # polynomials of the shard phase
 SHARD_DS = (1, 2, 4, 8)  # shard counts whose tables the kernel is held on
 SHARD_TIMEOUT_S = 300  # the spawned sharded ranks, when there are several cards
+KS_SHARD_NB = 4  # ciphertexts of the digit-sharded rotation (N = 8192, L = 2)
+#: a three-limb ring (+P) at N = 8192, (q, psi, psi^-1) per modulus: the
+#: JAX package's test ring (tests/test_multilimb.py:19-24)
+P3 = [(576460752303439873, 572686754113469876, 509288606595595249),
+      (576460752303702017, 518640146586316029, 547209705829931988),
+      (576460752304439297, 191393272803421785, 427853369549297084),
+      (576460752304619521, 151596679657857464, 439393009888152773)]
 MUL_BATCHES = 3  # batches of B cleartext pairs on the multiply path
 GRID_NB = 64  # polynomials of the grid-kernel cases
 RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
@@ -492,26 +516,29 @@ def ntt_work(nb: int, M: int, n: int, inverse: bool):
     return nb * M * n * 16 + M * n * 16, nb * M * _transform_ops(n, inverse), "int32"
 
 
-def _ks_sizes():
-    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+def _ks_sizes(cfg=None):
+    from aloha_tpu_torch.config import DEFAULT_CONFIG
 
-    L, n = CFG.n_limbs, CFG.n
+    cfg = cfg or DEFAULT_CONFIG
+    L, n = cfg.n_limbs, cfg.n
     # forward and inverse (w, wshoup) of every modulus
     return L, n, 2 * (L + 1) * n * 16
 
 
-def ks_head_work(nb: int):
-    """One ks_head launch: nb b-parts (L, N) in, (L+1, L, N) raised digits out."""
-    L, n, tables = _ks_sizes()
+def ks_head_work(nb: int, cfg=None):
+    """One ks_head launch: nb b-parts (L, N) in, (L+1, L, N) raised digits
+    out, at cfg's limb count (None: the default ring's)."""
+    L, n, tables = _ks_sizes(cfg)
     fwd, inv = _transform_ops(n, False), _transform_ops(n, True)
     head = L * inv + L * (L + 1) * fwd + L * (L + 2) * n * ELEM_OPS
     return nb * L * n * 8 + nb * (L + 1) * L * n * 8 + tables, nb * head, "int32"
 
 
-def ks_tail_work(nb_in: int, nb_out: int, K: int, shoup: bool):
+def ks_tail_work(nb_in: int, nb_out: int, K: int, shoup: bool, cfg=None):
     """One ks_tail launch: nb_in raised digits and riders in, K keys (with
-    their Shoup companions when `shoup`), nb_out (a, b) pairs out."""
-    L, n, tables = _ks_sizes()
+    their Shoup companions when `shoup`), nb_out (a, b) pairs out, at cfg's
+    limb count."""
+    L, n, tables = _ks_sizes(cfg)
     fwd, inv = _transform_ops(n, False), _transform_ops(n, True)
     tail = (2 * (L + 1) * L * n * (MULMOD_OPS + ELEM_OPS) + 2 * inv + 2 * L * fwd
             + 2 * L * n * (2 * ELEM_OPS + MULMOD_OPS) + (L + 2) * n * ELEM_OPS)
@@ -722,15 +749,17 @@ NTT_NBS = (1, 131, 132, 133, 264)
 
 
 def ntt_ring(n: int, M: int, inverse: bool):
-    """M moduli of length-n transforms and their roots: q0, q1, P up to
-    N = 8192, q0, q1, q0 at 16384 (2n does not divide P - 1 there)."""
+    """M moduli of length-n transforms and their roots: up to N = 8192
+    q0, q1, P (M <= 3) or the three-limb ring's four moduli (M = 4, P3);
+    at 16384 q0, q1, q0, q1 (2n divides neither P - 1 nor most of P3's)."""
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 
-    qs = (CFG.moduli if n <= CFG.n else (CFG.moduli[0], CFG.moduli[1], CFG.moduli[0]))[:M]
+    small = [(q, psi) for q, psi, _ in P3] if M == 4 else list(zip(CFG.moduli, CFG.psi))
+    qs = ([q for q, _ in small] if n <= CFG.n else [CFG.moduli[m % 2] for m in range(M)])[:M]
     roots = []
     for m, q in enumerate(qs):
         if n <= CFG.n:
-            psi = pow(CFG.psi[m], CFG.n // n, q)
+            psi = pow(small[m][1], CFG.n // n, q)
         else:
             psi = next(r for r in (pow(g, (q - 1) // (2 * n), q) for g in range(2, 100))
                        if pow(r, n, q) == q - 1)
@@ -739,9 +768,10 @@ def ntt_ring(n: int, M: int, inverse: bool):
 
 
 def ntt_shapes(dev, results: dict):
-    """ntt against its plain version at NTT_LENGTHS x NTT_NBS, M = 1 and 3,
-    both directions: words lifted to random points of the input window,
-    every third row all at its top (4q - 1 forward, 2q - 1 inverse)."""
+    """ntt against its plain version at NTT_LENGTHS x NTT_NBS, M = 1, 3 and
+    4 (the L+1 moduli of the three-limb ring), both directions: words
+    lifted to random points of the input window, every third row all at its
+    top (4q - 1 forward, 2q - 1 inverse)."""
     import numpy as np
 
     from aloha_tpu_torch import convert as cv
@@ -751,7 +781,7 @@ def ntt_shapes(dev, results: dict):
     for n in NTT_LENGTHS:
         for inv in (False, True):
             top = 2 if inv else 4
-            for M in (1, 3):
+            for M in (1, 3, 4):
                 qs, roots = ntt_ring(n, M, inv)
                 for nb in NTT_NBS:
                     rng = np.random.default_rng(n + M + nb)
@@ -1051,17 +1081,21 @@ def phase_serve(card: str, dev):
     return launches
 
 
-def _spawn_sharded(D: int, nb: int) -> list:
-    """The dry run on D ranks, one per card, NCCL: each rank's result."""
+def _spawn_dryrun(ranks: int, argv: list, workload: str = "ntt") -> list:
+    """The dry run's `workload` on `ranks` spawned ranks on the card(s): one
+    per card over NCCL, or sharing them over gloo when they outnumber the
+    cards (multihost.initialize chooses); each rank's result."""
     import tempfile
 
     import numpy as np
 
     from aloha_tpu_torch.parallel import dryrun
 
+    name = "" if workload == "ntt" else f"_{workload}"
     with tempfile.TemporaryDirectory() as tmp:
-        dryrun.spawn(D, ["--device", "cuda", "--batch", str(nb), "--out", tmp], SHARD_TIMEOUT_S)
-        return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(D)]
+        dryrun.spawn(ranks, ["--device", "cuda", "--workload", workload, "--out", tmp] + argv,
+                     SHARD_TIMEOUT_S)
+        return [dict(np.load(f"{tmp}/rank{r}{name}.npz")) for r in range(ranks)]
 
 
 def phase_shard(card: str, dev, results: dict):
@@ -1104,7 +1138,7 @@ def phase_shard(card: str, dev, results: dict):
             dist.destroy_process_group()
         launches = ntt_stream.transform_with_tables.launches
     else:
-        ranks = _spawn_sharded(Dp, nb)
+        ranks = _spawn_dryrun(Dp, ["--batch", str(nb)])
         launches = int(sum(int(r["launches"]) for r in ranks))
     forward = all(bool(r["forward_ok"]) for r in ranks)
     roundtrip = all(bool(r["roundtrip_ok"]) for r in ranks)
@@ -1120,6 +1154,141 @@ def phase_shard(card: str, dev, results: dict):
     if launches == 0:
         fail("kernel ntt_with_tables was not launched by the sharded path")
     return {"ntt_with_tables": launches}
+
+
+def phase_ks_shard(card: str, dev, results: dict):
+    """The digit-sharded rotation over L ranks, then the three-limb ring on
+    the card: ks_head/ks_tail against their plain versions, a rotation and
+    a hoisted rotation of an encryption, and a flipped key word."""
+    import numpy as np
+    import torch
+
+    from aloha_tpu_torch import convert as cv
+    from aloha_tpu_torch import encoder, keys
+    from aloha_tpu_torch import he_torch as ht
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.config import HEConfig
+    from aloha_tpu_torch.ops import ks_kernel as ksk_ops
+
+    # the main path, part 1: rotate_sharded at N = 8192, L = 2 over L
+    # ranks; each rank counts its own launches from 0
+    L, n, nb = CFG.n_limbs, CFG.n, KS_SHARD_NB
+    ranks = _spawn_dryrun(L, ["--batch", str(nb)], "keyswitch")
+    launches = {"ntt": sum(int(r["launches_ntt"]) for r in ranks),
+                "aut": sum(int(r["launches_aut"]) for r in ranks)}
+    for r in ranks:
+        print(f"ks_shard: rotate_sharded rank {int(r['digit'])} of {L} (limb {int(r['digit'])}, "
+              f"N={n}, nb={nb}, {r['backend']} over {torch.cuda.device_count()} card(s)): "
+              f"{float(r['seconds']) * 1e3:.3f} ms a rotation "
+              f"(host clock, device synchronised before and after); beside it one "
+              f"all_reduce of its {2 * (L + 1) * nb * n * 8} bytes alone "
+              f"{float(r['allreduce_seconds']) * 1e3:.3f} ms; the fused he_torch.rotate of the "
+              f"whole ciphertexts {float(r['fused_seconds']) * 1e3:.3f} ms; limb word-exact "
+              f"against the plain he_torch.rotate on CPU tensors: {bool(r['exact'])} on {card}",
+              flush=True)
+    if not all(bool(r["exact"]) for r in ranks):
+        fail("a rank's limb of rotate_sharded differs from the plain he_torch.rotate")
+
+    # the three-limb ring: the key-switch pair against its plain versions
+    cfg = HEConfig(moduli=tuple(p[0] for p in P3), psi=tuple(p[1] for p in P3),
+                   ipsi=tuple(p[2] for p in P3))
+    L3, mod = cfg.n_limbs, cfg.moduli
+    rng = np.random.default_rng(SEED + 7)
+
+    def rand(shape, moduli):
+        return cv.from_u64(
+            np.stack([rng.integers(0, q, size=shape, dtype=np.uint64) for q in moduli]), dev)
+
+    def key():
+        stride = 2 * L3
+        return cv.from_u64(np.stack([rng.integers(0, mod[p // stride], size=n, dtype=np.uint64)
+                                     for p in range(stride * (L3 + 1))]), dev)
+
+    b16, b48 = rand((B, n), mod[:L3]), rand((3 * B, n), mod[:L3])
+    for label, x, e in ((f"L=3 hoisted nb={B}", b16, None),
+                        (f"L=3 aut nb={B}", b16, pow(3, 5, 2 * n)),
+                        (f"L=3 hoisted nb={3 * B}", b48, None)):
+        check(results, card, "ks_head", label, lambda: ksk_ops.ks_head(x, e, cfg),
+              lambda: ksk_ops.ks_head_plain(x, e, cfg), ks_head_work(x.shape[1], cfg))
+    nd, nd48 = ksk_ops.ks_head(b16, None, cfg), ksk_ops.ks_head(b48, None, cfg)
+    rider, rider48 = rand((B, n), mod[:L3]), rand((3 * B, n), mod[:L3])
+    prep = [ksk_ops.prepare_ksk(key(), cfg, aut_exp=pow(3, s, 2 * n)) for s in (1, 2, 3)]
+    k3, s3 = (torch.stack([p[i] for p in prep]) for i in (0, 1))
+    for label, run, plain, work in (
+            (f"L=3 shared K=3 nb={B}",
+             lambda: ksk_ops.ks_tail(nd, rider, k3, cfg, kshoup=s3, shared_inputs=True),
+             lambda: ksk_ops.ks_tail_plain(nd, rider, k3, cfg, shared_inputs=True),
+             ks_tail_work(B, 3 * B, 3, True, cfg)),
+            (f"L=3 batched K=3 nb={3 * B}",
+             lambda: ksk_ops.ks_tail(nd48, rider48, k3, cfg, kshoup=s3),
+             lambda: ksk_ops.ks_tail_plain(nd48, rider48, k3, cfg),
+             ks_tail_work(3 * B, 3 * B, 3, True, cfg)),
+            (f"L=3 single nb={B} shoup",
+             lambda: ksk_ops.ks_tail(nd, rider, prep[0][0], cfg, kshoup=prep[0][1]),
+             lambda: ksk_ops.ks_tail_plain(nd, rider, prep[0][0], cfg),
+             ks_tail_work(B, B, 1, True, cfg))):
+        check(results, card, "ks_tail", label, run, plain, work)
+
+    # the main path, part 2: rotations of an encryption at L = 3, counts
+    # from 0 here
+    gen = torch.Generator().manual_seed(SEED + 8)
+    sk = keys.gen_secret(cfg, gen, dev)
+    rk = {s: keys.gen_rotation_key(sk, s, cfg, gen) for s in (1, 2, 3)}
+    z = np.zeros(n // 2, complex)
+    z[:8] = np.arange(8) * 0.1
+    raw = encoder.encode(encoder.cleartext_from_slots(z), cfg)[0]
+    q0 = mod[0]
+    m = np.where(raw > q0 // 2, raw.astype(np.int64) - q0, raw.astype(np.int64))
+    ct = keys.encrypt(torch.from_numpy(np.stack([m] * B)).to(dev), sk, cfg, gen)
+    ksk_ops.prepare_ksk(rk[2], cfg)  # one-time key preparation, as at key load
+    for s in (1, 3):
+        ksk_ops.prepare_ksk(rk[s], cfg, aut_exp=pow(3, s, 2 * n))
+    for fn in (ksk_ops.ks_head, ksk_ops.ks_tail):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rot = ht.rotate(ct, 2, rk[2], cfg)
+    hoisted = ht.rotate_hoisted(ct, [1, 3], [rk[1], rk[3]], cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches.update(ks_head=ksk_ops.ks_head.launches, ks_tail=ksk_ops.ks_tail.launches)
+
+    worst = 0.0
+    for s, out in ((2, rot), (1, hoisted[0]), (3, hoisted[1])):
+        if out[0].shape != (B, L3, n):
+            fail(f"L=3 rotation output shape {tuple(out[0].shape)}, expected {(B, L3, n)}")
+        dec = keys.decrypt(out, sk, cfg).cpu().numpy()
+        for row in dec:
+            got = encoder.decode(np.where(row < 0, row + q0, row).astype(np.uint64)[None, :],
+                                 cfg, 0)
+            worst = max(worst, float(np.abs(got - np.roll(z, -s)).max()))
+    if not worst < RELIN_ENVELOPE:
+        fail(f"L=3 rotations decrypt error {worst} >= {RELIN_ENVELOPE}")
+    cpu = torch.device("cpu")
+    one = tuple(p[:1].cpu() for p in ct)
+    ref = [ht.rotate(one, 2, rk[2].cpu(), cfg)] + ht.rotate_hoisted(
+        one, [1, 3], [rk[1].cpu(), rk[3].cpu()], cfg)
+    for got, want in zip([rot] + hoisted, ref):
+        if not all(torch.equal(g[:1].cpu(), w) for g, w in zip(got, want)):
+            fail("L=3: ciphertext 0 differs from the plain rotation on CPU tensors")
+
+    # a negative probe on the card: one flipped q0-lane key word changes
+    # 1-2 words of a[0] through the fused pair and nothing else
+    bad_key = rk[2].clone()
+    bad_key[0, 123] ^= 1
+    bad = ht.rotate(ct, 2, bad_key, cfg)
+    ndiff = int((bad[0][:, 0] != rot[0][:, 0]).sum(dim=-1).max())
+    if not (torch.equal(bad[1], rot[1]) and torch.equal(bad[0][:, 1:], rot[0][:, 1:])
+            and 1 <= ndiff <= 2):
+        fail(f"L=3: a flipped key word did not stay in its component ({ndiff} words of a[0])")
+    print(f"ks_shard: L=3 (N={n}, B={B}): rotate by 2 and rotate_hoisted by 1, 3 in "
+          f"{secs * 1e3:.1f} ms (host clock, synchronised), decrypt error {worst:.3g} < "
+          f"{RELIN_ENVELOPE}; ciphertext 0 word-exact against the plain path on CPU tensors; "
+          f"a flipped key word changed {ndiff} word(s) of a[0] only; launches={launches} "
+          f"on {card}", flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the ks_shard path")
+    return launches
 
 
 def _grid_cases(card: str, dev, results: dict):
@@ -2050,6 +2219,7 @@ def main():
         for name, phase in (("serve", lambda: phase_serve(card, dev)),
                             ("bench", lambda: phase_bench(card, dev, results)),
                             ("shard", lambda: phase_shard(card, dev, results)),
+                            ("ks_shard", lambda: phase_ks_shard(card, dev, results)),
                             ("multiply", lambda: phase_multiply(card, dev, results)),
                             ("isa", lambda: phase_isa(card, dev, results)),
                             ("probes", lambda: phase_probes(card, dev, results))):

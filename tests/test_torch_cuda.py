@@ -18,6 +18,7 @@ from aloha_tpu.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch import ntt_torch
+from aloha_tpu_torch.config import HEConfig
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
 from aloha_tpu_torch.probes import common as probe_common
 from aloha_tpu_torch.probes import (dma_bisect, dma_bisect_doublebuf, dma_bisect_stages,
@@ -44,13 +45,22 @@ def _residues(rng, lead, moduli, dev):
     )
 
 
-def _key(rng, dev):
-    stride = 2 * L
+def _key(rng, dev, cfg=CFG):
+    stride = 2 * cfg.n_limbs
     return cv.from_u64(
-        np.stack([rng.integers(0, CFG.moduli[p // stride], size=N, dtype=np.uint64)
-                  for p in range(stride * (L + 1))]),
+        np.stack([rng.integers(0, cfg.moduli[p // stride], size=N, dtype=np.uint64)
+                  for p in range(stride * (cfg.n_limbs + 1))]),
         dev,
     )
+
+
+#: a three-limb ring (+P) at N = 8192 (tests/test_multilimb.py:19-24)
+_P3 = [(576460752303439873, 572686754113469876, 509288606595595249),
+       (576460752303702017, 518640146586316029, 547209705829931988),
+       (576460752304439297, 191393272803421785, 427853369549297084),
+       (576460752304619521, 151596679657857464, 439393009888152773)]
+CFG3 = HEConfig(moduli=tuple(p[0] for p in _P3), psi=tuple(p[1] for p in _P3),
+                ipsi=tuple(p[2] for p in _P3))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -373,15 +383,16 @@ def test_ks_head_kernel_matches_plain(dev, step_exp, nb):
     assert torch.equal(got, ks_kernel.ks_head_plain(b, step_exp, CFG))
 
 
-def _tail_case(mode, nb, dev):
+def _tail_case(mode, nb, dev, cfg=CFG):
     """(nd, rider, key, kshoup, shared) of a ks_tail launch in `mode` with
     nb ciphertexts in (batched keys: two blocks of nb, one per key)."""
     rng = np.random.default_rng(3)
+    nl = cfg.n_limbs
     nb_in = 2 * nb if mode == "batched" else nb
-    nd = _residues(rng, (nb_in, L), CFG.moduli, dev)
-    rider = _residues(rng, (nb_in,), CFG.moduli[:L], dev)
-    raw = [_key(rng, dev) for _ in range(2)]
-    prep = [ks_kernel.prepare_ksk(k, CFG, aut_exp=pow(3, i + 1, 2 * N))
+    nd = _residues(rng, (nb_in, nl), cfg.moduli, dev)
+    rider = _residues(rng, (nb_in,), cfg.moduli[:nl], dev)
+    raw = [_key(rng, dev, cfg) for _ in range(2)]
+    prep = [ks_kernel.prepare_ksk(k, cfg, aut_exp=pow(3, i + 1, 2 * N))
             for i, k in enumerate(raw)]
     stacked = (torch.stack([p[0] for p in prep]), torch.stack([p[1] for p in prep]))
     key, kshoup, shared = {
@@ -401,6 +412,51 @@ def test_ks_tail_kernel_matches_plain(dev, mode, nb):
     torch.cuda.synchronize()
     assert torch.equal(got, ks_kernel.ks_tail_plain(nd, rider, key, CFG,
                                                     shared_inputs=shared))
+
+
+@pytest.mark.parametrize("nb", [1, 16, 48])
+@pytest.mark.parametrize("step_exp", [None, pow(3, 5, 2 * N)])
+def test_ks_head_kernel_matches_plain_at_three_limbs(dev, step_exp, nb):
+    """csrc/ks.cu's head at L = 3: a grid of (nb, L+1, L) CTAs."""
+    b = _residues(np.random.default_rng(12), (nb,), CFG3.moduli[:3], dev)
+    got = ks_kernel.ks_head(b, step_exp, CFG3)
+    torch.cuda.synchronize()
+    assert got.shape == (4, nb, 3, N)
+    assert torch.equal(got, ks_kernel.ks_head_plain(b, step_exp, CFG3))
+
+
+@pytest.mark.parametrize("nb", [1, 16, 48])
+@pytest.mark.parametrize("mode", ["single-barrett", "single-shoup", "batched", "shared"])
+def test_ks_tail_kernel_matches_plain_at_three_limbs(dev, mode, nb):
+    """csrc/ks.cu's tail at L = 3 (key stride 2L(L+1) = 24 rows), at the
+    cluster it chooses and at each cluster it has an instance for."""
+    nd, rider, key, kshoup, shared = _tail_case(mode, nb, dev, CFG3)
+    want = ks_kernel.ks_tail_plain(nd, rider, key, CFG3, shared_inputs=shared)
+    for c in (0,) + ks_kernel.tail_clusters(N):
+        got = ks_kernel.ks_tail(nd, rider, key, CFG3, kshoup=kshoup, shared_inputs=shared,
+                                cluster=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), c
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_at_four_moduli(dev, inverse):
+    """csrc/ntt.cu at M = 4 (the L+1 moduli of a three-limb ring: the
+    raised digits' launch) on words lifted to its input window, every third
+    row at the top."""
+    top = 2 if inverse else 4
+    qs, roots = CFG3.moduli, CFG3.ipsi if inverse else CFG3.psi
+    for nb in (1, 131, 132, 133, 264):
+        rng = np.random.default_rng(40 + nb)
+        a = np.stack([rng.integers(0, q, size=(nb, N), dtype=np.uint64)
+                      + np.uint64(q) * rng.integers(0, top, size=(nb, N), dtype=np.uint64)
+                      for q in qs])
+        for m, q in enumerate(qs):
+            a[m, ::3] = top * q - 1
+        x = cv.from_u64(a, dev)
+        got = ntt_stream.transform(x, qs, roots, inverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt_stream.transform_plain(x, qs, roots, inverse)), nb
 
 
 @pytest.mark.parametrize("nb", KS_NBS)
