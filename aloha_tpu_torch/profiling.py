@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import time
 from typing import Dict, List, Optional
@@ -83,6 +84,16 @@ class Profiler:
         for s in out.values():
             s["mean_s"] = s["total_s"] / s["count"]
         return out
+
+
+def trace_device_events(path):
+    """(device events, busy µs) of a Chrome trace that `device_trace`
+    exported: the kernels, copies and fills the card ran (one stream, so
+    their intervals add)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return len(dev), sum(float(e.get("dur", 0)) for e in dev)
 
 
 def profile_device(device, profiler: Profiler):

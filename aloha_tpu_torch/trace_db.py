@@ -8,8 +8,11 @@ C-model traces (`.tdb` files) replayed against the RTL
 a trace, another replays the same program and every instruction's result
 is diffed, instruction by instruction.  Here one backend (the CPU's plain
 path, or the JAX package's NumPy oracle) records and another (the card)
-verifies.  The reader is the Python one; the JAX package's native C++
-reader is not ported.
+verifies.  `read` runs the port's own C++ reader (`native.read_tdb`, the
+port's copy of the JAX package's `native/aloha_native.cpp`, built with
+g++ at first use; a build failure raises); the Python reader stays
+reachable by name (`_read_python`), and the tests hold the two against
+each other and against the JAX package's.
 
 Row = one traced instruction: [pc, instr_hi, instr_lo, result[0..n-1]].
 """
@@ -22,6 +25,7 @@ from typing import List
 
 import numpy as np
 
+from aloha_tpu_torch import native
 from aloha_tpu_torch.isa.encoding import Instr
 
 _MAGIC = 0x42445441  # "ATDB"
@@ -59,7 +63,12 @@ def write(path, rows: List[TraceRow], n: int) -> None:
 
 
 def read(path) -> List[TraceRow]:
-    """Read a trace database."""
+    """Read a trace database with the native reader."""
+    return _rows_from(native.read_tdb(path))
+
+
+def _read_python(path) -> List[TraceRow]:
+    """Read a trace database with the Python reader."""
     with open(path, "rb") as f:
         magic, _ver, n_fields, name_bytes = struct.unpack("<IIII", f.read(16))
         if magic != _MAGIC:
@@ -67,10 +76,15 @@ def read(path) -> List[TraceRow]:
         n_rows, row_words = struct.unpack("<QQ", f.read(16))
         f.read(16 * n_fields + name_bytes)
         data = np.frombuffer(f.read(n_rows * row_words * 8), dtype="<u8")
+    return _rows_from(data.reshape(n_rows, row_words))
+
+
+def _rows_from(mat: np.ndarray) -> List[TraceRow]:
     rows = []
-    for r in data.reshape(n_rows, row_words):
+    for r in mat:
         enc = (int(r[1]) << 64) | int(r[2])
-        rows.append(TraceRow(pc=int(r[0]), instr=Instr.decode(enc), result=r[3:].copy()))
+        rows.append(TraceRow(pc=int(r[0]), instr=Instr.decode(enc),
+                             result=np.array(r[3:], dtype=np.uint64)))
     return rows
 
 

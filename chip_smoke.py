@@ -43,10 +43,12 @@ Phases, each printing its own line; any failure exits nonzero:
   4. serve: three encrypted matrix-vector requests, each a batch of 16
      ciphertexts through he_torch.matvec_bsgs (D=16 diagonals, g=4) and
      rescale, with keys, encodings and encryptions made by the port
-     (aloha_tpu_torch.keys and .encoder); decrypts within 0.15 of the
-     cleartext product, ciphertext 0 of request 0 word-exact against the
-     port's plain path on CPU tensors, and every kernel launched by the
-     requests;
+     (aloha_tpu_torch.keys and .encoder, through .client); decrypts within
+     0.15 of the cleartext product and within the rescale's noise bound
+     (client.noise_bound standard deviations of client.noise_sigma), the
+     vector of largest error and ciphertext 0 of request 0 word-exact
+     against the port's plain path on CPU tensors, and every kernel
+     launched by the requests;
   5. bench: ntt, ntt_grid, ntt_mxu and the chain (k=64) at the bench's
      own shapes and inputs against their plain versions (torch.equal); the
      ntt kernel's marginal ns per polynomial over the batch (nb = 256 ->
@@ -101,6 +103,15 @@ Phases, each printing its own line; any failure exits nonzero:
      (CRT over both limbs at Delta^2), the rescaled one within 0.15, the
      two rotations equal, ciphertext 0 word-exact against the port's plain
      path on CPU tensors, and ntt_grid, ntt, ks_head, ks_tail launched;
+  7b. opbench: aloha_tpu_torch.opbench.run, every row (the chained he_torch
+     links hom_add ... encode, the end-to-end request) at B=16 and K=2,
+     the ISA op-list at B=4 (phase 8 runs it at B=16), one timed run each:
+     each row's JSON on its own line; fails on a row that raised, a
+     bitexact or graph_bitexact false (batch element 0, or the end-to-end
+     request's worst vector, against the plain path on CPU tensors, the
+     graph's words against the eager chain's), an end-to-end error beyond
+     its noise bound, or a he_torch row without a graph time; ntt,
+     ks_head, ks_tail, ntt_grid and aut launched;
   8. isa: aut (csrc/aut.cu) under q0, q1 and P at N=8192, nb=1, 64 and 133
      and nb=16 at row stride 2n (a view of every other row, as the multiply
      path hands it in), and at n = 128 and 1024, nb = 1, for the 12
@@ -112,7 +123,8 @@ Phases, each printing its own line; any failure exits nonzero:
      store) plus run_rotate(2) and run_rotate_any(5) of the fresh
      encryptions.  Every stored ciphertext word-exact against he_torch on
      the card, ciphertext 0 against the replay on CPU tensors, a key-switch
-     .tdb trace verified against the CPU, the rotations decrypting within
+     .tdb trace verified against the CPU (read by the native C++ reader,
+     row for row equal to the Python reader's), the rotations decrypting within
      1e-4, the checkpoint round trip exact, ntt and aut launched; host ms
      per launch kind, and one profiled key-switch beside the fused rotate;
      aut's main case (q0, nb = 1, e = 9) and its nb = 16 at stride 2n and
@@ -197,6 +209,8 @@ MUL_BATCHES = 3  # batches of B cleartext pairs on the multiply path
 GRID_NB = 64  # polynomials of the grid-kernel cases
 RELIN_ENVELOPE = 1e-4  # decrypt error of the relinearized product (tests/test_keys.py)
 ENVELOPE = 0.15  # decrypt error bound of examples/encrypted_matvec.py
+OPBENCH = dict(batch=B, chain_k=2, trials=1, replay_s=3.0)  # the op bench phase
+OPBENCH_ISA_BATCH = 4  # its ISA op-list's ciphertexts (phase 8 runs B)
 LANE_EDGE_NBS = (1, 3, 133)  # batches of the lane kernel's edge sweep
 LANE_EDGE_NSTAGES = (0, 1, 7, 14, 26)  # its stage counts: s mod 7 and s mod 13 apart
 #: batches of probe_ops' edge sweep: 1, 3, more CTAs than SMs, past one
@@ -985,15 +999,14 @@ def phase_serve(card: str, dev):
     import numpy as np
     import torch
 
+    from aloha_tpu_torch import client, encoder, keys
     from aloha_tpu_torch import convert as cv
-    from aloha_tpu_torch import encoder, keys
     from aloha_tpu_torch import he_torch as ht
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
     from aloha_tpu_torch.ops import ntt_stream
 
     n, S = CFG.n, CFG.n // 2
-    q0, q1 = CFG.moduli[0], CFG.moduli[1]
     nb_giant = (D + G - 1) // G
     cpu = torch.device("cpu")
 
@@ -1014,14 +1027,9 @@ def phase_serve(card: str, dev):
     diags = ht.encode_post(cv.from_u64(dcoeff, dev), CFG)
     requests = []
     for r in range(REQUESTS):
-        zs, signed = [], []
-        for i in range(B):
-            z = rng.uniform(-1, 1, size=S) + 1j * rng.uniform(-1, 1, size=S)
-            pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
-            signed.append(np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
-                                   pt[0].astype(np.int64)))
-            zs.append(z)
-        A, Bp = keys.encrypt(torch.from_numpy(np.stack(signed)).to(dev), sk, CFG, gen)
+        zs = np.stack([rng.uniform(-1, 1, size=S) + 1j * rng.uniform(-1, 1, size=S)
+                       for _ in range(B)])
+        A, Bp = client.encrypt_slots(zs, sk, CFG, gen)
         requests.append((zs, cv.to_u64(A), cv.to_u64(Bp)))
     print(f"serve: set-up {time.perf_counter() - t0:.1f} s (keygen and encryption of "
           f"{REQUESTS}x{B} ciphertexts on the card, host encoding)", flush=True)
@@ -1048,36 +1056,43 @@ def phase_serve(card: str, dev):
         if count == 0:
             fail(f"kernel {name} was not launched by the main path")
 
-    # checks: decrypt error on the card, word-exactness against the port's
-    # plain path on CPU tensors (held against he_np by the CPU tests)
-    worst = 0.0
-    for (zs, _, _), (oa, ob) in zip(requests, outs):
+    # checks: decrypt error on the card, against 0.15 and against the
+    # rescale's noise; word-exactness against the port's plain path on CPU
+    # tensors (held against he_np by the CPU tests)
+    worst, ratio, square = (0.0, 0, 0), 0.0, 0.0
+    for r, ((zs, _, _), (oa, ob)) in enumerate(zip(requests, outs)):
         if oa.shape != (B, 1, n) or ob.shape != (B, 1, n):
             fail(f"output shape {oa.shape}, expected {(B, 1, n)}")
-        m = keys.decrypt((cv.from_u64(oa, dev), cv.from_u64(ob, dev)), sk, CFG).cpu().numpy()
-        for i, z in enumerate(zs):
-            res = np.where(m[i] < 0, m[i] + np.int64(q0), m[i]).astype(np.uint64)
-            got = encoder.decode(res[None, :], CFG, limb=0) * (q1 / encoder.DELTA)
-            want = sum(d * np.roll(z, -k) for k, d in enumerate(dvecs))
-            worst = max(worst, float(np.abs(got - want).max()))
-    if not worst < ENVELOPE:
-        fail(f"decrypt error {worst} >= {ENVELOPE}")
+        got, dec = client.decrypt_rescaled((cv.from_u64(oa, dev), cv.from_u64(ob, dev)), sk, CFG)
+        want = np.stack([client.matvec_clear(dvecs, z) for z in zs])
+        err, rat, sq = client.slot_errors(got, want, client.noise_sigma(dec, sk, CFG))
+        worst, ratio = max(worst, (float(err.max()), r, int(err.argmax()))), max(ratio, rat)
+        square += sq / REQUESTS
+    bound = client.noise_bound(REQUESTS * B * S)
+    if not worst[0] < ENVELOPE:
+        fail(f"decrypt error {worst[0]} >= {ENVELOPE}")
+    if not ratio < bound:
+        fail(f"decrypt error {ratio} noise standard deviations >= {bound}")
     diags_cpu = ht.encode_post(cv.from_u64(dcoeff, cpu), CFG)
     if not np.array_equal(cv.to_u64(diags), cv.to_u64(diags_cpu)):
         fail("encode_post of the diagonals differs from the plain path on the CPU")
-    _, A, Bp = requests[0]
     t = time.perf_counter()
-    ref = ht.rescale(ht.matvec_bsgs(
-        (cv.from_u64(A[:1], cpu), cv.from_u64(Bp[:1], cpu)), list(diags_cpu),
-        [ksk[s].cpu() for s in baby_steps], [ksk[s].cpu() for s in giant_steps], CFG, g=G,
-    ), CFG)
+    for r, i in ((0, 0), worst[1:]):
+        _, A, Bp = requests[r]
+        ref = ht.rescale(ht.matvec_bsgs(
+            (cv.from_u64(A[i:i + 1], cpu), cv.from_u64(Bp[i:i + 1], cpu)), list(diags_cpu),
+            [ksk[s].cpu() for s in baby_steps], [ksk[s].cpu() for s in giant_steps], CFG, g=G,
+        ), CFG)
+        if not (np.array_equal(outs[r][0][i:i + 1], cv.to_u64(ref[0]))
+                and np.array_equal(outs[r][1][i:i + 1], cv.to_u64(ref[1]))):
+            fail(f"ciphertext {i} of request {r} differs from the plain matvec_bsgs + rescale "
+                 "on the CPU")
     cpu_s = time.perf_counter() - t
-    if not (np.array_equal(outs[0][0][:1], cv.to_u64(ref[0]))
-            and np.array_equal(outs[0][1][:1], cv.to_u64(ref[1]))):
-        fail("ciphertext 0 of request 0 differs from the plain matvec_bsgs + rescale on the CPU")
-    print(f"serve: max decrypt error {worst:.4f} < {ENVELOPE} over {REQUESTS * B} "
-          f"ciphertexts; ciphertext 0 word-exact against the plain path on CPU tensors "
-          f"(CPU reference: {cpu_s:.1f} s on the host)", flush=True)
+    print(f"serve: max decrypt error {worst[0]:.4f} < {ENVELOPE} (request {worst[1]}, "
+          f"ciphertext {worst[2]}), {ratio:.3f} < {bound:.3f} noise standard deviations (mean "
+          f"square {square:.3f}), over "
+          f"{REQUESTS * B} ciphertexts; it and ciphertext 0 of request 0 word-exact against the "
+          f"plain path on CPU tensors (CPU reference: {cpu_s:.1f} s on the host)", flush=True)
     return launches
 
 
@@ -1496,6 +1511,39 @@ def phase_multiply(card: str, dev, results: dict):
     return launches
 
 
+def phase_opbench(card: str, dev):
+    """Every row of the op bench on the card (aloha_tpu_torch.opbench)."""
+    from aloha_tpu_torch import opbench
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+
+    # the main path: counts start at 0 here
+    for fn in opbench.COUNTERS.values():
+        fn.launches = 0
+    def show(name, row):
+        print(f"opbench {name}: {json.dumps(row)}", flush=True)
+
+    isa = ["isa_oplist"]
+    res = opbench.run(CFG, dev, **OPBENCH, ops=[r for r in opbench.ROWS if r not in isa],
+                      on_row=show)
+    res_isa = opbench.run(CFG, dev, **{**OPBENCH, "batch": OPBENCH_ISA_BATCH}, ops=isa,
+                          on_row=show)
+    res["rows"].update(res_isa["rows"])
+    launches = {name: fn.launches for name, fn in opbench.COUNTERS.items()}
+    print(f"opbench: {len(res['rows'])} rows at B={OPBENCH['batch']} (the ISA op-list at "
+          f"B={OPBENCH_ISA_BATCH}), K={OPBENCH['chain_k']}; null {res['null_ms']:.4f} ms; "
+          f"launches={launches} on {res['card']}", flush=True)
+    bad = opbench.failures(res)
+    if bad:
+        fail(f"opbench rows at fault: {bad}")
+    ungraphed = [name for name in opbench.GRAPH_ROWS if res["rows"][name]["graph_recorded"] is None]
+    if ungraphed:
+        fail(f"opbench rows without a graph time: {ungraphed}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the op bench")
+    return launches
+
+
 AUT_OPS = 6  # per coefficient: index product, mask, compare, 64-bit q - x (2), select
 AUT_MAIN = "q0 nb=1 e=9"  # aut's case in the kernels line: the ISA's shape, exponent 3^2
 #: (nb, n, k) of phase 8's aut cases, rows k n apart: the ISA's shape, one
@@ -1512,15 +1560,6 @@ def aut_work(nb: int, n: int):
     return 2 * nb * n * 8, nb * n * AUT_OPS, "int32"
 
 
-def _trace_device_events(path):
-    """(device events, busy µs) of an exported Chrome trace: the kernels,
-    copies and fills the card ran (one stream, so their intervals add)."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    return len(dev), sum(float(e.get("dur", 0)) for e in dev)
-
-
 def phase_isa(card: str, dev, results: dict):
     """The HE vector-ISA replay on the card: AlohaDevice + HostRunner
     driving the four canned programs, vaut through csrc/aut.cu."""
@@ -1530,8 +1569,8 @@ def phase_isa(card: str, dev, results: dict):
     import numpy as np
     import torch
 
+    from aloha_tpu_torch import client, encoder, keys, opbench, profiling, trace_db
     from aloha_tpu_torch import convert as cv
-    from aloha_tpu_torch import encoder, keys, profiling, trace_db
     from aloha_tpu_torch import he_torch as ht
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.isa import programs
@@ -1576,12 +1615,7 @@ def phase_isa(card: str, dev, results: dict):
     for c, k in rk.items():
         device.dma_load_ksk(k, row=device.rotation_ksk_ptr(c))
     zs = rng.uniform(-1, 1, (B, S)) + 1j * rng.uniform(-1, 1, (B, S))
-    signed = []
-    for z in zs:
-        pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
-        signed.append(np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
-                               pt[0].astype(np.int64)))
-    A, Bp = keys.encrypt(torch.from_numpy(np.stack(signed)).to(dev), sk, CFG, gen)
+    A, Bp = client.encrypt_slots(zs, sk, CFG, gen)
     flat = np.concatenate([cv.to_u64(A).reshape(B, -1), cv.to_u64(Bp).reshape(B, -1)], axis=1)
     clear = encoder.cleartext_from_slots(rng.uniform(-1, 1, S) + 1j * rng.uniform(-1, 1, S))
     enc = functools.partial(encoder.encode, cfg=CFG)
@@ -1595,17 +1629,10 @@ def phase_isa(card: str, dev, results: dict):
           f"{B} encryptions)", flush=True)
 
     # the op-list in the reference's case3 line format: encode one plaintext,
-    # then per ciphertext load, mul_plain, rotate by 2 and by 4, hom_add, store
-    CT, PT, R1, R2, R3, R4 = 0, 256, 512, 768, 1024, 1280
-
-    def line(op, spm, b, c):
-        return f"{(op << 28) | spm:08x},{b:08x},{c:08x}"
-
-    def block(i):
-        return [line(1, CT, 0, i * ct_bytes), line(5, R1, CT, PT), line(7, R2, 2, R1),
-                line(7, R3, 4, R1), line(6, R4, R2, R3), line(2, R4, 0, (B + i) * ct_bytes)]
-
-    ops = host.parse_op_list("\n".join([line(3, PT, 0, 0)] + sum((block(i) for i in range(B)), [])))
+    # then per ciphertext load, mul_plain, rotate by 2 and by 4, hom_add,
+    # store (the op bench's, its first link); SPM rows of a ciphertext apart
+    CT, R2, R3, R4 = 0, 768, 1024, 1280
+    ops = host.parse_op_list(opbench.isa_oplist(CFG, B, 0))
 
     # the main path: counts start at 0 here
     counters = {"aut": aut.automorphism, "ntt": ntt_stream.transform}
@@ -1680,7 +1707,12 @@ def phase_isa(card: str, dev, results: dict):
     rows = trace_db.record(device.vp, device.isram, device.spm, device.ksk_mem, args)
     with tempfile.TemporaryDirectory() as tmp:
         trace_db.write(f"{tmp}/keyswitch.tdb", rows, n)
-        back = trace_db.read(f"{tmp}/keyswitch.tdb")
+        back = trace_db.read(f"{tmp}/keyswitch.tdb")  # the native reader
+        py = trace_db._read_python(f"{tmp}/keyswitch.tdb")
+        if len(py) != len(back) or any(
+                a.pc != b.pc or a.instr.encode() != b.instr.encode()
+                or not np.array_equal(a.result, b.result) for a, b in zip(back, py)):
+            fail("the native and Python .tdb readers differ on the key-switch trace")
         bad = trace_db.verify(VectorProcessor(CFG, TorchBackend(cpu)), device.isram,
                               device.spm.cpu(), device.ksk_mem.cpu(), args, back)
         if bad or not back:
@@ -1710,7 +1742,8 @@ def phase_isa(card: str, dev, results: dict):
                  f">= {RELIN_ENVELOPE}")
     print(f"isa: {B} ciphertexts word-exact against he_torch on the card; ciphertext 0 "
           f"word-exact against the CPU replay ({cpu_s:.1f} s on the host); the key-switch "
-          f"trace ({len(rows)} rows) verifies against the CPU; save_state/load_state exact; "
+          f"trace ({len(rows)} rows; the native reader's equal to the Python one's) verifies "
+          f"against the CPU; save_state/load_state exact; "
           f"decrypt error run_rotate(2) {worst[2]:.3g}, run_rotate_any(5) {worst[5]:.3g} "
           f"< {RELIN_ENVELOPE}", flush=True)
 
@@ -1720,7 +1753,7 @@ def phase_isa(card: str, dev, results: dict):
         with profiling.Profiler(trace_dir=tmp).device_trace("keyswitch"):
             device.run_rotate(dest=R2, src=CT, step=2)
         traced_s = prof.records[-1].seconds  # the launch alone, synchronised, profiler on
-        n_dev, busy_us = _trace_device_events(f"{tmp}/keyswitch.json")
+        n_dev, busy_us = profiling.trace_device_events(f"{tmp}/keyswitch.json")
     ks_ms = per_kind["keyswitch"]["mean_s"] * 1e3
     print(f"isa: one keyswitch launch under torch.profiler: {n_dev} device events, device busy "
           f"{busy_us / 1e3:.3f} ms of the {traced_s * 1e3:.2f} ms launch profiled "
@@ -2221,6 +2254,7 @@ def main():
                             ("shard", lambda: phase_shard(card, dev, results)),
                             ("ks_shard", lambda: phase_ks_shard(card, dev, results)),
                             ("multiply", lambda: phase_multiply(card, dev, results)),
+                            ("opbench", lambda: phase_opbench(card, dev)),
                             ("isa", lambda: phase_isa(card, dev, results)),
                             ("probes", lambda: phase_probes(card, dev, results))):
             t0 = time.perf_counter()

@@ -8,11 +8,13 @@ The port of examples/encrypted_matvec.py with `aloha_tpu_torch` alone: a
 bank of D = 4 wrapped diagonals applied to an encrypted vector by the
 diagonal method with baby-step/giant-step (g = 2: one hoisted baby
 rotation, one giant rotation).  Pipeline: encode -> encrypt -> matvec_bsgs
--> rescale -> decrypt -> decode, checked against the cleartext product.
-On `cuda` the transforms and the key-switch run the hand kernels
-(csrc/ntt.cu, csrc/ks.cu); on the CPU their plain versions.  Prints the
-slot error and exits nonzero unless it is below 0.15; without a CUDA
-device it exits nonzero unless `--device cpu` is given.
+-> rescale -> decrypt -> decode, checked against the cleartext product
+(the client's side through `aloha_tpu_torch.client`).  On `cuda` the
+transforms and the key-switch run the hand kernels (csrc/ntt.cu,
+csrc/ks.cu); on the CPU their plain versions.  Prints the slot error and
+exits nonzero unless it is below 0.15 and within the rescale's noise
+bound; without a CUDA device it exits nonzero unless `--device cpu` is
+given.
 """
 import argparse
 import pathlib
@@ -23,8 +25,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import numpy as np
 import torch
 
+from aloha_tpu_torch import client, encoder, keys
 from aloha_tpu_torch import convert as cv
-from aloha_tpu_torch import encoder, keys
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 
@@ -44,7 +46,6 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(7)
     gen = torch.Generator().manual_seed(7)
     S = CFG.n // 2  # complex slots
-    q0 = CFG.moduli[0]
 
     # -- keys
     sk = keys.gen_secret(CFG, gen, dev)
@@ -53,10 +54,7 @@ def main(argv=None) -> int:
 
     # -- encrypt the vector
     z = rng.uniform(-1, 1, size=S) + 1j * rng.uniform(-1, 1, size=S)
-    pt = encoder.encode(encoder.cleartext_from_slots(z), CFG)
-    signed = np.where(pt[0] > q0 // 2, pt[0].astype(np.int64) - np.int64(q0),
-                      pt[0].astype(np.int64))
-    ct = keys.encrypt(torch.from_numpy(signed).to(dev), sk, CFG, gen)
+    ct = client.encrypt_slots(z[None], sk, CFG, gen)
 
     # -- encode the matrix diagonals (public data)
     dvecs = [rng.uniform(-1, 1, size=S) for _ in range(D)]
@@ -67,13 +65,13 @@ def main(argv=None) -> int:
     out = ht.rescale(ht.matvec_bsgs(ct, list(diags), ksks_baby, ksks_giant, CFG, g=G), CFG)
 
     # -- decrypt + decode at the post-rescale scale Delta^2/q1
-    m = keys.decrypt(out, sk, CFG).cpu().numpy()
-    res = np.where(m < 0, m + np.int64(q0), m).astype(np.uint64)
-    got = encoder.decode(res[None, :], CFG, limb=0) * (CFG.moduli[1] / encoder.DELTA)
-    want = sum(d * np.roll(z, -k) for k, d in enumerate(dvecs))
-    err = float(np.abs(got - want).max())
-    print(f"slots checked: {S} on {dev}; max |error| = {err:.4f} (envelope {ENVELOPE})")
-    if not err < ENVELOPE:
+    got, dec = client.decrypt_rescaled(out, sk, CFG)
+    err, ratio, _ = client.slot_errors(got, client.matvec_clear(dvecs, z)[None],
+                                    client.noise_sigma(dec, sk, CFG))
+    err, bound = float(err[0]), client.noise_bound(S)
+    print(f"slots checked: {S} on {dev}; max |error| = {err:.4f} (envelope {ENVELOPE}), "
+          f"{ratio:.3f} noise standard deviations (bound {bound:.3f})")
+    if not (err < ENVELOPE and ratio < bound):
         print("encrypted matvec FAILED", file=sys.stderr)
         return 1
     print("encrypted matvec OK")

@@ -285,3 +285,18 @@ def test_profiler_records_launches_and_exports_a_trace(tmp_path):
     assert "traceEvents" in json.loads((tmp_path / "hom_add.json").read_text())
     with profiling.Profiler().device_trace() as none:
         assert none is None
+
+
+def test_trace_device_events_counts_the_cards_work(tmp_path):
+    """The busy time of a trace is the sum of its kernels, copies and fills;
+    host events do not count (a CPU trace has none of the card's)."""
+    events = [{"cat": "kernel", "dur": 2.5}, {"cat": "gpu_memcpy", "dur": 1.0},
+              {"cat": "gpu_memset", "dur": 0.5}, {"cat": "cpu_op", "dur": 100.0},
+              {"cat": "cuda_runtime", "dur": 7.0}, {"ph": "M"}]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profiling.trace_device_events(path) == (3, 4.0)
+    prof = profiling.Profiler(trace_dir=str(tmp_path))
+    with prof.device_trace("cpu"):
+        torch.ones(64).sum()
+    assert profiling.trace_device_events(tmp_path / "cpu.json") == (0, 0)

@@ -79,7 +79,8 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.probes.probe_dynsub', 'aloha_tpu_torch.probes.dma_bisect',"
         " 'aloha_tpu_torch.probes.dma_bisect_doublebuf',"
         " 'aloha_tpu_torch.probes.dma_bisect_stages',"
-        " 'aloha_tpu_torch.probes.dma_bisect_tblread'} <= set(names)\n"
+        " 'aloha_tpu_torch.probes.dma_bisect_tblread', 'aloha_tpu_torch.opbench',"
+        " 'aloha_tpu_torch.native', 'aloha_tpu_torch.client'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
@@ -190,6 +191,15 @@ def test_probe_entry_points_refuse_to_run_without_cuda(module):
     """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
     no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
     res = _run(["-m", f"aloha_tpu_torch.probes.{module}"], ROOT)
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""
+    assert "GPU" in res.stderr
+
+
+def test_opbench_refuses_to_run_without_cuda():
+    """`python -m aloha_tpu_torch.opbench` times the card: with no CUDA it
+    exits nonzero and prints no row (no CPU fallback unless --device cpu)."""
+    res = _run(["-m", "aloha_tpu_torch.opbench", "--ops", "hom_add"], ROOT)
     assert res.returncode != 0
     assert res.stdout.strip() == ""
     assert "GPU" in res.stderr
