@@ -9,9 +9,12 @@ Layers (bottom-up): `config` and the NumPy golden model `ntt_np` ->
 `rns_torch` modular arithmetic -> `ntt_torch` transforms and tables ->
 `ops/` kernel wrappers (CUDA C++ under `csrc/`, each with a plain PyTorch
 version beside it) -> `keys` (key generation, encryption), `encoder`
-(host-side NumPy) and `he_torch` ciphertext ops -> `parallel/` (the
-coefficient-sharded NTT over `torch.distributed`).  `convert` carries
-state from the JAX package.  The port keeps its own copies of what it
+(host-side NumPy) and `he_torch` ciphertext ops -> `parallel/` (over
+`torch.distributed`: the coefficient-sharded NTT, the digit-sharded
+rotation with one all_reduce, and the coefficient-sharded rotation with
+one all-to-all) -> the entry points `entry` (the flagship rotation and
+the multi-device dry run) and `scaling` (the rotation's scaling bench and
+collective census).  `convert` carries state from the JAX package.  The port keeps its own copies of what it
 needs and imports neither JAX nor `aloha_tpu`.
 """
 

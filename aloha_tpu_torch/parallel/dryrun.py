@@ -1,10 +1,10 @@
 """Dry run of the port's multi-device paths.
 
     torchrun --nproc-per-node R -m aloha_tpu_torch.parallel.dryrun [--device cpu]
-        [--workload {ntt,keyswitch,hoisted,bsgs}]...
+        [--workload {ntt,keyswitch,hoisted,bsgs,smoke}]...
 
 The port of the JAX package's multi-chip dry run (__graft_entry__.py:
-163-218 and `_dryrun_workloads`, :221-end).  Each workload draws its
+49-145, 163-218 and `_dryrun_workloads`, :221-end).  Each workload draws its
 inputs from a seed, runs on this rank's share and checks it, one printed
 line per check; the run exits nonzero when a check fails.
 
@@ -21,7 +21,14 @@ line per check; the run exits nonzero when a check fails.
              each rank's block of the batch (dp = R), and
   bsgs       `he_torch.matvec_bsgs` (D = 4 diagonals, g = 2) likewise: the
              first and last row of each block word-exact against the plain
-             path on CPU tensors.
+             path on CPU tensors;
+  smoke      the coefficient-sharded rotation `coeff_sharded.rotate` (the
+             JAX package's GSPMD smoke tier, __graft_entry__.py:87-145) on
+             the (dp, coeff) mesh of `multihost.pod_mesh`, at the ring
+             max(256, 8 coeff) (or --n) with batch 2 dp (or --batch): rank
+             (i, d) rotates rows block i, coefficients block d, by step 2
+             and checks it against the plain `he_torch.rotate` of the whole
+             batch on CPU tensors, word for word.
 
 The key-switch workloads run on the ring `ring(--n, --moduli, --psi)`: the
 default moduli (L = 2) scaled to n, or the given ones (L = len - 1).  Ranks
@@ -51,13 +58,15 @@ from aloha_tpu_torch import keys, ntt_np
 from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
 from aloha_tpu_torch.config import HEConfig
 from aloha_tpu_torch.ops import aut, ntt_stream
-from aloha_tpu_torch.parallel import multihost
+from aloha_tpu_torch.parallel import coeff_sharded, multihost
 from aloha_tpu_torch.parallel.keyswitch_sharded import rotate_sharded
 from aloha_tpu_torch.parallel.ntt_sharded import intt_sharded, ntt_sharded
 
 SEED = 2  # of the seeded batch every rank draws in full and takes its block of
-WORKLOADS = ("ntt", "keyswitch", "hoisted", "bsgs")
-KS_STEP = 2  # the sharded rotation's step (__graft_entry__.py:206)
+WORKLOADS = ("ntt", "keyswitch", "hoisted", "bsgs", "smoke")
+KS_STEP = 2  # the sharded rotations' step (__graft_entry__.py:128, :206)
+SMOKE_SEED = 1  # of the smoke workload's draws (__graft_entry__.py:108)
+BATCH = 4  # the default batch of every workload but smoke
 HOISTED_STEPS = (1, 2)
 BSGS_D, BSGS_G = 4, 2
 
@@ -266,6 +275,59 @@ def run_bsgs(device: torch.device, cfg: HEConfig, batch: int = 4) -> dict:
             "a": cv.to_u64(out[0]), "b": cv.to_u64(out[1])}
 
 
+def smoke_ring(coeff: int) -> int:
+    """The smoke workload's ring degree on a coefficient axis of `coeff`
+    ranks (__graft_entry__.py:107)."""
+    return max(256, 8 * coeff)
+
+
+def smoke_inputs(cfg: HEConfig, batch: int):
+    """The smoke workload's (a, b, ksk), drawn as __graft_entry__.py:108-111
+    draws them: uint64 (batch, L, n), (batch, L, n) and (2L(L+1), n), words
+    below q0 (the smallest modulus, so canonical under every modulus)."""
+    rng = np.random.default_rng(SMOKE_SEED)
+    L, n, q0 = cfg.n_limbs, cfg.n, cfg.moduli[0]
+    a = rng.integers(0, q0, size=(batch, L, n), dtype=np.uint64)
+    b = rng.integers(0, q0, size=(batch, L, n), dtype=np.uint64)
+    return a, b, rng.integers(0, q0, size=(2 * L * (L + 1), n), dtype=np.uint64)
+
+
+def run_smoke(device: torch.device, n: int | None = None, batch: int | None = None,
+              dp: int = 1) -> dict:
+    """One rank's part of the smoke workload: its block of the batch
+    (rows over dp, coefficients over coeff) rotated by
+    `coeff_sharded.rotate`, checked word for word against the plain
+    `he_torch.rotate` of the whole batch on CPU tensors.  The rotation's
+    seconds are timed on the host clock, the device synchronised before and
+    after; the launches are `transform_with_tables`'."""
+    mesh = multihost.pod_mesh(("dp", "coeff"), dp, device.type)
+    D, d, i = mesh.size(1), mesh.get_local_rank("coeff"), mesh.get_local_rank("dp")
+    n = n or smoke_ring(D)
+    batch = batch or 2 * dp
+    if batch % dp:
+        raise ValueError(f"batch {batch} over dp={dp}: not divisible")
+    cfg = ring(n)
+    a, b, ksk = smoke_inputs(cfg, batch)
+    nbl, C = batch // dp, n // D
+    rows, cols = slice(i * nbl, (i + 1) * nbl), slice(d * C, (d + 1) * C)
+    block = (cv.from_u64(a[rows, :, cols], device), cv.from_u64(b[rows, :, cols], device))
+    key = cv.from_u64(ksk[:, cols], device)
+    before = ntt_stream.transform_with_tables.launches
+    out = []
+    seconds = _timed(lambda: out.extend(
+        coeff_sharded.rotate(block, KS_STEP, key, cfg, mesh.get_group("coeff"))), device)
+    launches = ntt_stream.transform_with_tables.launches - before
+    cpu = torch.device("cpu")
+    want = ht.rotate((cv.from_u64(a, cpu), cv.from_u64(b, cpu)), KS_STEP,
+                     cv.from_u64(ksk, cpu), cfg)
+    got = tuple(cv.to_u64(x) for x in out)
+    exact = all(np.array_equal(g, cv.to_u64(w)[rows, :, cols]) for g, w in zip(got, want))
+    return {"dp": dp, "coeff": D, "dp_index": i, "d": d, "n": n, "batch": batch,
+            "rows": (rows.start, rows.stop), "cols": (cols.start, cols.stop),
+            "a": got[0], "b": got[1], "exact": exact, "seconds": seconds,
+            "backend": dist.get_backend(), "launches": launches}
+
+
 def init_world_of_one(device: torch.device) -> None:
     """A process group of one rank on `device`, from an in-memory store (no
     rendezvous)."""
@@ -286,10 +348,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--workload", choices=WORKLOADS, action="append",
                     help="repeatable; default: ntt")
-    ap.add_argument("--n", type=int, default=CFG.n, help="ring degree (<= 8192)")
-    ap.add_argument("--batch", type=int, default=4, help="polynomials (ciphertexts) in the batch")
+    ap.add_argument("--n", type=int, default=None,
+                    help=f"ring degree (<= 8192; default {CFG.n}, smoke: max(256, 8 coeff))")
+    ap.add_argument("--batch", type=int, default=None,
+                    help=f"polynomials (ciphertexts) in the batch (default {BATCH}, smoke: 2 dp)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="size of the batch-parallel axis (ntt, keyswitch)")
+                    help="size of the batch-parallel axis (ntt, keyswitch, smoke)")
     ap.add_argument("--moduli", type=_ints, default=None,
                     help="the key-switch ring's moduli q_0,...,q_{L-1},P (default: CFG's)")
     ap.add_argument("--psi", type=_ints, default=None,
@@ -311,24 +375,35 @@ def main(argv=None) -> int:
     ok = True
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
-        cfg = ring(args.n, args.moduli, args.psi)
+        n, batch = args.n or CFG.n, args.batch or BATCH
+        cfg = ring(n, args.moduli, args.psi)
         for workload in workloads:
+            ok_line = None
             if workload == "ntt":
-                res = run(device, args.n, args.batch, args.dp)
+                res = run(device, n, batch, args.dp)
                 tag = (f"dryrun rank {rank}/{world}: D={res['D']} dp={res['dp']} n={res['n']} "
                        f"rows {res['rows']} cols {res['cols']} on {device}")
                 checks = {"forward equals ntt_np.ntt": res["forward_ok"],
                           "round trip exact": res["roundtrip_ok"]}
             elif workload == "keyswitch":
-                res = run_keyswitch(device, cfg, args.batch, args.dp)
+                res = run_keyswitch(device, cfg, batch, args.dp)
                 tag = (f"dryrun keyswitch rank {rank}/{world}: dp={res['dp']} x digit={res['L']}"
                        f" n={res['n']} limb {res['digit']} rows {res['rows']} on {device} "
                        f"({res['backend']}), {res['seconds']:.4f} s a rotation (one "
                        f"all_reduce of its words {res['allreduce_seconds']:.4f} s, he_torch."
                        f"rotate of the block {res['fused_seconds']:.4f} s)")
                 checks = {"limb equals the plain he_torch.rotate": res["exact"]}
+            elif workload == "smoke":
+                res = run_smoke(device, args.n, args.batch, args.dp)
+                tag = (f"dryrun smoke rank {rank}/{world}: dp={res['dp']} x coeff={res['coeff']} "
+                       f"n={res['n']} rows {res['rows']} cols {res['cols']} on {device} "
+                       f"({res['backend']}), {res['seconds']:.4f} s a rotation")
+                checks = {"block equals the plain he_torch.rotate": res["exact"]}
+                ok_line = (f"dryrun_multichip smoke OK (coefficient-sharded rotate): mesh "
+                           f"dp={res['dp']} x coeff={res['coeff']}, ring n={res['n']}, "
+                           f"batch={res['batch']}")
             else:
-                res = (run_hoisted if workload == "hoisted" else run_bsgs)(device, cfg, args.batch)
+                res = (run_hoisted if workload == "hoisted" else run_bsgs)(device, cfg, batch)
                 tag = (f"dryrun {workload} rank {rank}/{world}: dp={world} n={cfg.n} "
                        f"L={cfg.n_limbs} rows {res['rows']} on {device}")
                 checks = {"first and last row equal the plain path": res["exact"]}
@@ -339,33 +414,36 @@ def main(argv=None) -> int:
             for what, good in checks.items():
                 print(f"{tag}: {what}: {good}", flush=True)
                 ok = ok and bool(good)
+            if ok_line and all(checks.values()):
+                print(ok_line, flush=True)
         return 0 if ok else 1
     finally:
         dist.destroy_process_group()
 
 
-def _rank(local_rank: int, world: int, port: int, argv) -> None:
+def _rank(local_rank: int, world: int, port: int, argv, target) -> None:
     """One rank of `spawn`: torchrun's environment for a single-host job on
-    127.0.0.1:port, then `main(argv)`; SystemExit with its code on failure."""
+    127.0.0.1:port, then `target(argv)`; SystemExit with its code on failure."""
     os.environ.update(
         RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(world),
         LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
     )
-    code = main(list(argv))
+    code = target(list(argv))
     if code:
         raise SystemExit(code)
 
 
-def spawn(world: int, argv, timeout_s: float) -> None:
-    """Run `main(argv)` on `world` local ranks started by
+def spawn(world: int, argv, timeout_s: float, target=None) -> None:
+    """Run `target(argv)` (default: this module's `main`), a module-level
+    function returning an exit code, on `world` local ranks started by
     `torch.multiprocessing` at a free port.  Raises when a rank fails or
     when the ranks have not finished within timeout_s, and kills every
     rank still running."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = mp.start_processes(_rank, args=(world, port, list(argv)), nprocs=world,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_rank, args=(world, port, list(argv), target or main),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
 from aloha_tpu_torch.ops import aut, ntt_stream
+from aloha_tpu_torch.parallel import multihost
 
 
 def _ntt(x, q: int, root: int, inverse: bool):
@@ -65,6 +66,7 @@ def _local_rotate(a_j, b_j, key_j, e: int, j: int, cfg: HEConfig, group):
         rt.mulmod(nd[m], key_j[m, p].expand_as(nd[m]), moduli[m])
         for m in range(L + 1) for p in (0, 1)
     ])
+    multihost.record("all_reduce", shares)
     dist.all_reduce(shares, op=dist.ReduceOp.SUM, group=group)
     c = []
     for k in range(2 * (L + 1)):

@@ -10,10 +10,18 @@ and `initialize()` then does nothing.  `local_device` is the rank's
 device: `cuda:(LOCAL_RANK mod cards)` or the CPU.  `pod_mesh` lays the
 world out as a (dp, coeff) device mesh: batch-parallel groups across hosts,
 the coefficient axis inside each host.
+
+`collectives()` counts the collectives of the sharded paths at their call
+sites (the port of the HLO census of tools/scaling_report.py:39-79, which
+has no HLO to read here): each records its kind and the bytes of the
+tensor this rank hands to it.  `staged_on_host` names the one case in
+which those call sites copy through host memory: gloo has no CUDA form of
+point-to-point sends or of all-to-all.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Sequence
@@ -24,6 +32,39 @@ import torch.distributed as dist
 #: Rendezvous and collective timeout: a rank that never arrives fails the
 #: job instead of hanging it.
 TIMEOUT = datetime.timedelta(seconds=60)
+
+#: the open `collectives()` counters, innermost last
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def collectives():
+    """Count the collectives this rank makes inside the block: yields a
+    dict {kind: (calls, bytes)}, kind one of "exchange" (a block swapped
+    with one peer, `ntt_sharded`), "all_reduce" (`keyswitch_sharded`) and
+    "all_to_all" (`coeff_sharded`), bytes the size of the tensors this rank
+    handed to them."""
+    counts: dict = {}
+    _COUNTERS.append(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTERS.remove(counts)
+
+
+def record(kind: str, tensor) -> None:
+    """Add one collective of `kind` over `tensor` to every open counter."""
+    nbytes = tensor.numel() * tensor.element_size()
+    for counts in _COUNTERS:
+        calls, total = counts.get(kind, (0, 0))
+        counts[kind] = (calls + 1, total + nbytes)
+
+
+def staged_on_host(tensor, group=None) -> bool:
+    """Whether a point-to-point or all-to-all collective of `tensor` over
+    `group` goes through host memory: CUDA tensors over a gloo group
+    (ranks sharing a card), which gloo sends only from the CPU."""
+    return tensor.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def backend_for(device_type: str, ranks_per_card: int = 1) -> str:

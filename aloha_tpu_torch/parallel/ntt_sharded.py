@@ -31,6 +31,7 @@ import torch.distributed as dist
 from aloha_tpu_torch import ntt_torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.ops import ntt_stream
+from aloha_tpu_torch.parallel import multihost
 
 
 def _layout(x, group):
@@ -42,8 +43,14 @@ def _layout(x, group):
 
 
 def _exchange(x, peer: int, group):
-    """Send this rank's block to group rank `peer` and receive its block."""
+    """Send this rank's block to group rank `peer` and receive its block
+    (through host memory where `multihost.staged_on_host` says gloo cannot
+    send the device's tensors)."""
     glob = peer if group is None else dist.get_global_rank(group, peer)
+    multihost.record("exchange", x)
+    device = x.device
+    if multihost.staged_on_host(x, group):
+        x = x.cpu()
     x = x.contiguous()
     got = torch.empty_like(x)
     for req in dist.batch_isend_irecv([
@@ -51,7 +58,7 @@ def _exchange(x, peer: int, group):
         dist.P2POp(dist.irecv, got, glob, group),
     ]):
         req.wait()
-    return got
+    return got.to(device)
 
 
 def ntt_sharded(x, q: int, psi: int, group=None):

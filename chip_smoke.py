@@ -87,6 +87,23 @@ Phases, each printing its own line; any failure exits nonzero:
      of the rolled slots, ciphertext 0 word-exact against the plain path on
      CPU tensors, ks_head and ks_tail launched; and one flipped key word,
      which must change 1-2 words of a[0] only through the fused pair;
+  6c. coeff_shard: entry.entry()'s fn (he_torch.rotate at N=8192, step 2:
+     ks_head/ks_tail) on the card, word for word against the same fn on
+     CPU tensors; the dry run's smoke workload (parallel.coeff_sharded.rotate,
+     the ring split over a coefficient group) over 2 ranks (dp=1 x coeff=2)
+     at its ring n=256, each rank's block word-exact against the plain
+     he_torch.rotate of the whole batch on CPU tensors;
+     aloha_tpu_torch.scaling at N=8192 as a world of one with --census
+     (B=8), then over 2 ranks (dp=2 x coeff=1 and dp=1 x coeff=2, with
+     --census, COEFF_NB ciphertexts a device and COEFF_ITERS chained
+     rotations a trial): every rank's JSON line (rotations/s of the mesh,
+     the fused he_torch.rotate's rate beside it, the card), every rank's
+     warm-up block word-exact against the plain he_torch.rotate of its rows
+     on CPU tensors, every census count equal to its formula;
+     ntt_with_tables, ks_head and ks_tail launched.  Ranks
+     share the card over gloo (the exchanges and the all-to-all staged
+     through host memory), or take one card each over NCCL where there are
+     enough;
   7. multiply: ntt_grid (the grid NTT's wrapper, ops/ntt_pallas, on
      csrc/ntt.cu at one modulus) forward and inverse under q0, q1 and P at
      N=8192, nb=64 (one row at the top of the input window), at nb=16 (the
@@ -199,6 +216,8 @@ SHARD_NB = 64  # polynomials of the shard phase
 SHARD_DS = (1, 2, 4, 8)  # shard counts whose tables the kernel is held on
 SHARD_TIMEOUT_S = 300  # the spawned sharded ranks, when there are several cards
 KS_SHARD_NB = 4  # ciphertexts of the digit-sharded rotation (N = 8192, L = 2)
+COEFF_NB = 4  # ciphertexts a device of the 2-rank scaling runs at N = 8192
+COEFF_ITERS = 5  # chained rotations a trial of the 2-rank scaling runs
 #: a three-limb ring (+P) at N = 8192, (q, psi, psi^-1) per modulus: the
 #: JAX package's test ring (tests/test_multilimb.py:19-24)
 P3 = [(576460752303439873, 572686754113469876, 509288606595595249),
@@ -1306,6 +1325,86 @@ def phase_ks_shard(card: str, dev, results: dict):
     return launches
 
 
+def phase_coeff_shard(card: str, dev):
+    """entry() on the card against the plain path, the coefficient-sharded
+    rotation over 2 ranks (the smoke workload at n = 256 and N = 8192), and
+    the scaling bench as a world of one and over 2 ranks."""
+    import tempfile
+
+    import torch
+
+    from aloha_tpu_torch import entry, scaling
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ks_kernel as ksk_ops
+    from aloha_tpu_torch.ops import ntt_stream
+
+    wrappers = {"ntt_with_tables": ntt_stream.transform_with_tables,
+                "ks_head": ksk_ops.ks_head, "ks_tail": ksk_ops.ks_tail}
+    for w in wrappers.values():
+        w.launches = 0
+    n = CFG.n
+
+    # entry(): the flagship rotation on the card and on CPU tensors
+    fn, args = entry.entry()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    exact = all(torch.equal(o.cpu(), w) for o, w in zip(out, cpu_fn(*cpu_args)))
+    print(f"coeff_shard: entry() fn (he_torch.rotate, N={n}, step {entry.STEP}) on the card "
+          f"{secs * 1e3:.3f} ms (first call, host clock); word-exact against the same fn on CPU "
+          f"tensors: {exact} on {card}", flush=True)
+    if not exact:
+        fail("entry()'s rotation on the card differs from the plain path")
+
+    # the smoke tier over 2 ranks at its ring
+    spawned = {"ntt_with_tables": 0, "ks_head": 0, "ks_tail": 0}
+    ranks = _spawn_dryrun(2, ["--dp", "1"], "smoke")
+    for r in ranks:
+        spawned["ntt_with_tables"] += int(r["launches"])
+        print(f"coeff_shard: smoke rank {int(r['dp_index'])},{int(r['d'])}: mesh dp="
+              f"{int(r['dp'])} x coeff={int(r['coeff'])}, ring n={int(r['n'])}, batch="
+              f"{int(r['batch'])}, rows {tuple(map(int, r['rows']))} cols "
+              f"{tuple(map(int, r['cols']))} ({r['backend']} over {torch.cuda.device_count()} "
+              f"card(s)): {float(r['seconds']) * 1e3:.3f} ms the first rotation (host clock, "
+              f"synchronised); block word-exact against the plain he_torch.rotate on CPU "
+              f"tensors: {bool(r['exact'])} on {card}", flush=True)
+    if not all(bool(r["exact"]) for r in ranks):
+        fail("a rank's block of the smoke tier differs from the plain he_torch.rotate")
+
+    # the scaling bench: a world of one with its census, then 2 ranks; the
+    # dp = 1 x coeff = 2 run is the N = 8192 sharded rotation on COEFF_NB
+    # ciphertexts, each rank's warm-up block checked word for word
+    with tempfile.TemporaryDirectory() as tmp:
+        if scaling.main(["--census", "--out", tmp]) != 0:
+            fail("aloha_tpu_torch.scaling (a world of one) failed its check or census")
+        records = [json.loads(open(f"{tmp}/rank0_scaling.json").read())]
+    for dp in (2, 1):
+        records += scaling.spawned(2, ["--census", "--dp", str(dp), "--iters", str(COEFF_ITERS),
+                                       "--batch-per-device", str(COEFF_NB)], SHARD_TIMEOUT_S)
+    for rec in records:
+        for k in spawned:
+            spawned[k] += rec["launches"][k] if rec["devices"] > 1 else 0
+        fused = (f", the fused he_torch.rotate {rec['fused_value']:.1f} rotations/s"
+                 if rec["fused_value"] else "")
+        print(f"coeff_shard: scaling rank {rec['rank']}/{rec['devices']} (dp={rec['dp']} x "
+              f"coeff={rec['coeff']}, N={rec['n']}, B={rec['batch']}): {rec['value']:.2f} "
+              f"rotations/s of the mesh, {rec['per_device']:.2f} a device{fused}; warm-up block "
+              f"{rec['census']['balance']['a_block']} word-exact against the plain "
+              f"he_torch.rotate on CPU tensors: {rec['exact']}; census ok: "
+              f"{all(v.get('ok') is not False for v in rec['census'].values())}, a rotation "
+              f"{rec['census']['balance']['seconds'] * 1e3:.3f} ms; on {rec['card']}", flush=True)
+        if not rec["exact"]:
+            fail("a rank's block of the scaling bench's rotation differs from the plain path")
+    launches = {k: w.launches + spawned[k] for k, w in wrappers.items()}
+    print(f"coeff_shard: launches={launches}", flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched by the coeff_shard path")
+    return launches
+
+
 def _grid_cases(card: str, dev, results: dict):
     """ntt_grid against its plain version, and csrc/ntt.cu at the same
     shapes and inputs, so that the two designs are compared on one card."""
@@ -2253,6 +2352,7 @@ def main():
                             ("bench", lambda: phase_bench(card, dev, results)),
                             ("shard", lambda: phase_shard(card, dev, results)),
                             ("ks_shard", lambda: phase_ks_shard(card, dev, results)),
+                            ("coeff_shard", lambda: phase_coeff_shard(card, dev)),
                             ("multiply", lambda: phase_multiply(card, dev, results)),
                             ("opbench", lambda: phase_opbench(card, dev)),
                             ("isa", lambda: phase_isa(card, dev, results)),

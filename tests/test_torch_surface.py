@@ -80,7 +80,9 @@ def test_import_leaves_jax_out():
         " 'aloha_tpu_torch.probes.dma_bisect_doublebuf',"
         " 'aloha_tpu_torch.probes.dma_bisect_stages',"
         " 'aloha_tpu_torch.probes.dma_bisect_tblread', 'aloha_tpu_torch.opbench',"
-        " 'aloha_tpu_torch.native', 'aloha_tpu_torch.client'} <= set(names)\n"
+        " 'aloha_tpu_torch.native', 'aloha_tpu_torch.client',"
+        " 'aloha_tpu_torch.parallel.coeff_sharded', 'aloha_tpu_torch.scaling',"
+        " 'aloha_tpu_torch.entry'} <= set(names)\n"
         "print(len(names), sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'triton', 'aloha_tpu') and sys.modules[k] is not None))\n"
     )
