@@ -40,9 +40,10 @@ def encode_signed(zs: np.ndarray, cfg: HEConfig) -> np.ndarray:
 
 
 def encrypt_slots(zs: np.ndarray, sk: keys.SecretKey, cfg: HEConfig,
-                  generator: torch.Generator):
+                  generator: torch.Generator = None):
     """Encode (B, N/2) slot vectors on the host and encrypt them on sk's
-    device: (a, b), each (B, L, N)."""
+    device: (a, b), each (B, L, N); the randomness from the OS unless a
+    generator is given (`keys.draw_encryption`)."""
     signed = torch.from_numpy(encode_signed(zs, cfg)).to(sk.ntt.device)
     return keys.encrypt(signed, sk, cfg, generator)
 

@@ -49,6 +49,15 @@ Phases, each printing its own line; any failure exits nonzero:
      vector of largest error and ciphertext 0 of request 0 word-exact
      against the port's plain path on CPU tensors, and every kernel
      launched by the requests;
+  4b. entropy: the serve path's key set (the secret key, the 6 rotation
+     keys of D=16, g=4) and one request of B=16 encryptions drawn from the
+     OS (keys' generator=None, the JAX package's rng=None); the host
+     seconds of the key set's draws and of its whole set-up on the card
+     printed beside a seeded generator's for the same key set; the request
+     on the card judged at client.noise_bound standard deviations (fresh
+     keys make the one-vector envelope 0.15 a random event), ciphertext 0
+     and the vector of largest error word-exact against the plain path on
+     CPU tensors, every kernel launched;
   5. bench: ntt, ntt_grid, ntt_mxu and the chain (k=64) at the bench's
      own shapes and inputs against their plain versions (torch.equal); the
      ntt kernel's marginal ns per polynomial over the batch (nb = 256 ->
@@ -210,7 +219,11 @@ import traceback
 
 SEED = 2024
 B, D, G = 16, 16, 4  # ciphertexts per request, diagonals, baby steps
+BABY_STEPS = list(range(1, G))
+GIANT_STEPS = [G * i for i in range(1, (D + G - 1) // G)]
+SERVE_STEPS = BABY_STEPS + GIANT_STEPS  # the rotation keys of a request
 REQUESTS = 3
+ENTROPY_TRIALS = 3  # timings of the entropy phase's draws and set-up, each source
 BENCH = dict(batch=256, chain_k=64)
 SHARD_NB = 64  # polynomials of the shard phase
 SHARD_DS = (1, 2, 4, 8)  # shard counts whose tables the kernel is held on
@@ -1014,11 +1027,31 @@ def chain_marginal(card: str, x, q: int, psi: int, results: dict):
     results["parts_full_vs_chain_ns"] = (full_ns, ns)
 
 
-def phase_serve(card: str, dev):
+def _serve_keys(dev, generator):
+    """The serve path's key set on the card: the secret key and the rotation
+    keys of its baby and giant steps, prepared as at key load; the draws
+    from `generator` (None: the OS)."""
+    from aloha_tpu_torch import keys
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from aloha_tpu_torch.ops import ks_kernel as ksk_ops
+
+    sk = keys.gen_secret(CFG, generator, dev)
+    ksk = {s: keys.gen_rotation_key(sk, s, CFG, generator) for s in SERVE_STEPS}
+    for s, k in ksk.items():  # one-time key preparation, as at key load
+        ksk_ops.prepare_ksk(k, CFG, aut_exp=pow(3, s, 2 * CFG.n))
+    return sk, ksk
+
+
+def _serve(card: str, dev, label: str, generator, n_requests: int, envelope):
+    """n_requests matvec requests of B ciphertexts (D diagonals, g = G) on the
+    card, keys and encryptions drawn from `generator` (None: the OS); every
+    vector judged at `client.noise_bound` (and under `envelope` unless None),
+    ciphertext 0 and the vector of largest error word-exact against the
+    plain path on CPU tensors.  Returns the requests' kernel launches."""
     import numpy as np
     import torch
 
-    from aloha_tpu_torch import client, encoder, keys
+    from aloha_tpu_torch import client, encoder
     from aloha_tpu_torch import convert as cv
     from aloha_tpu_torch import he_torch as ht
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
@@ -1026,40 +1059,34 @@ def phase_serve(card: str, dev):
     from aloha_tpu_torch.ops import ntt_stream
 
     n, S = CFG.n, CFG.n // 2
-    nb_giant = (D + G - 1) // G
     cpu = torch.device("cpu")
+    source = "the OS" if generator is None else "a seeded generator"
 
-    # set-up: keys on the card from a seeded generator, host encoding,
-    # diagonals and client encryption on the card
+    # set-up: keys on the card, host encoding, diagonals and client
+    # encryption on the card
     t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(SEED)
-    sk = keys.gen_secret(CFG, gen, dev)
-    baby_steps = list(range(1, G))
-    giant_steps = [G * i for i in range(1, nb_giant)]
-    ksk = {s: keys.gen_rotation_key(sk, s, CFG, gen) for s in baby_steps + giant_steps}
-    for s, k in ksk.items():  # one-time key preparation, as at key load
-        ksk_ops.prepare_ksk(k, CFG, aut_exp=pow(3, s, 2 * n))
+    sk, ksk = _serve_keys(dev, generator)
     rng = np.random.default_rng(SEED + 100)
     dvecs = [rng.uniform(-1, 1, size=S) for _ in range(D)]
     dcoeff = np.stack([encoder.encode(encoder.cleartext_from_slots(d + 0j), CFG)
                        for d in dvecs])
     diags = ht.encode_post(cv.from_u64(dcoeff, dev), CFG)
     requests = []
-    for r in range(REQUESTS):
+    for r in range(n_requests):
         zs = np.stack([rng.uniform(-1, 1, size=S) + 1j * rng.uniform(-1, 1, size=S)
                        for _ in range(B)])
-        A, Bp = client.encrypt_slots(zs, sk, CFG, gen)
+        A, Bp = client.encrypt_slots(zs, sk, CFG, generator)
         requests.append((zs, cv.to_u64(A), cv.to_u64(Bp)))
-    print(f"serve: set-up {time.perf_counter() - t0:.1f} s (keygen and encryption of "
-          f"{REQUESTS}x{B} ciphertexts on the card, host encoding)", flush=True)
+    print(f"{label}: set-up {time.perf_counter() - t0:.1f} s (keygen and encryption of "
+          f"{n_requests}x{B} ciphertexts on the card from {source}, host encoding)", flush=True)
 
     # the main path: counts start at 0 here
     counters = {"ntt": ntt_stream.transform, "ks_head": ksk_ops.ks_head,
                 "ks_tail": ksk_ops.ks_tail}
     for fn in counters.values():
         fn.launches = 0
-    baby = [ksk[s] for s in baby_steps]
-    giant = [ksk[s] for s in giant_steps]
+    baby = [ksk[s] for s in BABY_STEPS]
+    giant = [ksk[s] for s in GIANT_STEPS]
     lat, outs = [], []
     for _, A, Bp in requests:
         t = time.perf_counter()
@@ -1068,16 +1095,16 @@ def phase_serve(card: str, dev):
         outs.append((cv.to_u64(out[0]), cv.to_u64(out[1])))
         lat.append(time.perf_counter() - t)
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"serve: {REQUESTS} requests of B={B} ciphertexts (N={n}, L={CFG.n_limbs}, "
-          f"D={D}, g={G}): {REQUESTS / sum(lat):.3f} requests/s, latency_s="
+    print(f"{label}: {n_requests} requests of B={B} ciphertexts (N={n}, L={CFG.n_limbs}, "
+          f"D={D}, g={G}): {n_requests / sum(lat):.3f} requests/s, latency_s="
           f"{[round(x, 4) for x in lat]}, launches={launches} on {card}", flush=True)
     for name, count in launches.items():
         if count == 0:
-            fail(f"kernel {name} was not launched by the main path")
+            fail(f"kernel {name} was not launched by the {label} path")
 
-    # checks: decrypt error on the card, against 0.15 and against the
-    # rescale's noise; word-exactness against the port's plain path on CPU
-    # tensors (held against he_np by the CPU tests)
+    # checks: decrypt error on the card, against the envelope and against
+    # the rescale's noise; word-exactness against the port's plain path on
+    # CPU tensors (held against he_np by the CPU tests)
     worst, ratio, square = (0.0, 0, 0), 0.0, 0.0
     for r, ((zs, _, _), (oa, ob)) in enumerate(zip(requests, outs)):
         if oa.shape != (B, 1, n) or ob.shape != (B, 1, n):
@@ -1086,12 +1113,12 @@ def phase_serve(card: str, dev):
         want = np.stack([client.matvec_clear(dvecs, z) for z in zs])
         err, rat, sq = client.slot_errors(got, want, client.noise_sigma(dec, sk, CFG))
         worst, ratio = max(worst, (float(err.max()), r, int(err.argmax()))), max(ratio, rat)
-        square += sq / REQUESTS
-    bound = client.noise_bound(REQUESTS * B * S)
-    if not worst[0] < ENVELOPE:
-        fail(f"decrypt error {worst[0]} >= {ENVELOPE}")
+        square += sq / n_requests
+    bound = client.noise_bound(n_requests * B * S)
+    if envelope is not None and not worst[0] < envelope:
+        fail(f"{label}: decrypt error {worst[0]} >= {envelope}")
     if not ratio < bound:
-        fail(f"decrypt error {ratio} noise standard deviations >= {bound}")
+        fail(f"{label}: decrypt error {ratio} noise standard deviations >= {bound}")
     diags_cpu = ht.encode_post(cv.from_u64(dcoeff, cpu), CFG)
     if not np.array_equal(cv.to_u64(diags), cv.to_u64(diags_cpu)):
         fail("encode_post of the diagonals differs from the plain path on the CPU")
@@ -1100,19 +1127,62 @@ def phase_serve(card: str, dev):
         _, A, Bp = requests[r]
         ref = ht.rescale(ht.matvec_bsgs(
             (cv.from_u64(A[i:i + 1], cpu), cv.from_u64(Bp[i:i + 1], cpu)), list(diags_cpu),
-            [ksk[s].cpu() for s in baby_steps], [ksk[s].cpu() for s in giant_steps], CFG, g=G,
+            [ksk[s].cpu() for s in BABY_STEPS], [ksk[s].cpu() for s in GIANT_STEPS], CFG, g=G,
         ), CFG)
         if not (np.array_equal(outs[r][0][i:i + 1], cv.to_u64(ref[0]))
                 and np.array_equal(outs[r][1][i:i + 1], cv.to_u64(ref[1]))):
-            fail(f"ciphertext {i} of request {r} differs from the plain matvec_bsgs + rescale "
-                 "on the CPU")
+            fail(f"{label}: ciphertext {i} of request {r} differs from the plain matvec_bsgs + "
+                 "rescale on the CPU")
     cpu_s = time.perf_counter() - t
-    print(f"serve: max decrypt error {worst[0]:.4f} < {ENVELOPE} (request {worst[1]}, "
+    judged = f" < {envelope}" if envelope is not None else " (judged by the noise bound alone)"
+    print(f"{label}: max decrypt error {worst[0]:.4f}{judged} (request {worst[1]}, "
           f"ciphertext {worst[2]}), {ratio:.3f} < {bound:.3f} noise standard deviations (mean "
           f"square {square:.3f}), over "
-          f"{REQUESTS * B} ciphertexts; it and ciphertext 0 of request 0 word-exact against the "
+          f"{n_requests * B} ciphertexts; it and ciphertext 0 of request 0 word-exact against the "
           f"plain path on CPU tensors (CPU reference: {cpu_s:.1f} s on the host)", flush=True)
     return launches
+
+
+def phase_serve(card: str, dev):
+    import torch
+
+    return _serve(card, dev, "serve", torch.Generator().manual_seed(SEED), REQUESTS, ENVELOPE)
+
+
+def phase_entropy(card: str, dev):
+    """The serve path's key set and one request drawn from the OS (the JAX
+    package's rng=None), after the host seconds of its draws and of the
+    whole set-up beside a seeded generator's for the same key set."""
+    import numpy as np
+    import torch
+
+    from aloha_tpu_torch import client, keys
+    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+
+    zs = np.zeros((B, CFG.n // 2), dtype=np.complex128)
+    best = {}
+    for source, make in (("OS", lambda: None),
+                         ("seeded", lambda: torch.Generator().manual_seed(SEED))):
+        draws, setup = [], []
+        for _ in range(ENTROPY_TRIALS):
+            gen, t = make(), time.perf_counter()
+            keys.draw_secret(CFG, gen)
+            for _ in SERVE_STEPS:
+                keys.draw_ksk(CFG, gen)
+            keys.draw_encryption(CFG, gen, (B,))
+            draws.append(time.perf_counter() - t)
+            gen, t = make(), time.perf_counter()
+            sk, _ = _serve_keys(dev, gen)
+            client.encrypt_slots(zs, sk, CFG, gen)
+            torch.cuda.synchronize()
+            setup.append(time.perf_counter() - t)
+        best[source] = (min(draws), min(setup))
+    print(f"entropy: host seconds of the key set's draws (the secret, {len(SERVE_STEPS)} rotation "
+          f"keys, {B} encryptions at N={CFG.n}; best of {ENTROPY_TRIALS}): OS "
+          f"{best['OS'][0]:.4f}, seeded generator {best['seeded'][0]:.4f}; with the cores on the "
+          f"card (set-up) OS {best['OS'][1]:.4f}, seeded {best['seeded'][1]:.4f} on {card}",
+          flush=True)
+    return _serve(card, dev, "entropy", None, 1, None)
 
 
 def _spawn_dryrun(ranks: int, argv: list, workload: str = "ntt") -> list:
@@ -2349,6 +2419,7 @@ def main():
         seconds = {"build+kernels": time.perf_counter() - t0}
         paths = {}
         for name, phase in (("serve", lambda: phase_serve(card, dev)),
+                            ("entropy", lambda: phase_entropy(card, dev)),
                             ("bench", lambda: phase_bench(card, dev, results)),
                             ("shard", lambda: phase_shard(card, dev, results)),
                             ("ks_shard", lambda: phase_ks_shard(card, dev, results)),

@@ -3,13 +3,17 @@
 
     python examples/encrypted_matvec_torch.py               # on the card
     python examples/encrypted_matvec_torch.py --device cpu  # plain PyTorch
+    python examples/encrypted_matvec_torch.py --seed 7      # reproducible keys
 
 The port of examples/encrypted_matvec.py with `aloha_tpu_torch` alone: a
 bank of D = 4 wrapped diagonals applied to an encrypted vector by the
 diagonal method with baby-step/giant-step (g = 2: one hoisted baby
 rotation, one giant rotation).  Pipeline: encode -> encrypt -> matvec_bsgs
 -> rescale -> decrypt -> decode, checked against the cleartext product
-(the client's side through `aloha_tpu_torch.client`).  On `cuda` the
+(the client's side through `aloha_tpu_torch.client`).  The secret key,
+the rotation keys and the encryption draw from the OS, as the JAX
+example's do; `--seed` draws them from a seeded `torch.Generator`
+instead, for a run that repeats word for word.  On `cuda` the
 transforms and the key-switch run the hand kernels (csrc/ntt.cu,
 csrc/ks.cu); on the CPU their plain versions.  Prints the slot error and
 exits nonzero unless it is below 0.15 and within the rescale's noise
@@ -37,14 +41,16 @@ D, G = 4, 2  # diagonals, baby-step count (g b >= D)
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="draw keys and encryption from a generator of this seed (default: the OS)")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("encrypted_matvec_torch: no CUDA device (pass --device cpu for the plain path)",
               file=sys.stderr)
         return 1
     dev = torch.device(args.device)
-    rng = np.random.default_rng(7)
-    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)  # the public data: the vector and the diagonals
+    gen = None if args.seed is None else torch.Generator().manual_seed(args.seed)
     S = CFG.n // 2  # complex slots
 
     # -- keys
@@ -69,7 +75,8 @@ def main(argv=None) -> int:
     err, ratio, _ = client.slot_errors(got, client.matvec_clear(dvecs, z)[None],
                                     client.noise_sigma(dec, sk, CFG))
     err, bound = float(err[0]), client.noise_bound(S)
-    print(f"slots checked: {S} on {dev}; max |error| = {err:.4f} (envelope {ENVELOPE}), "
+    source = "the OS" if args.seed is None else f"seed {args.seed}"
+    print(f"slots checked: {S} on {dev}, keys from {source}; max |error| = {err:.4f} (envelope {ENVELOPE}), "
           f"{ratio:.3f} noise standard deviations (bound {bound:.3f})")
     if not (err < ENVELOPE and ratio < bound):
         print("encrypted matvec FAILED", file=sys.stderr)

@@ -5,6 +5,9 @@
 - `keys`' deterministic cores equal `aloha_tpu.keys` on the same draws: the
   port draws from a `torch.Generator` and the JAX functions are handed the
   same numbers through `Replay`, in the order they ask for them;
+- the seeded draws reduce 128 bits of slack: the secret and the b-parts
+  equal the Python integers of three 63-bit `random_` words of the same
+  generator mod 3 or q;
 - `keys.decrypt` of a ciphertext of the JAX package is word-exact, with its
   secret carried across by `convert.sk_from_np`;
 - a rotation key made by the port rotates: `he_torch.rotate`, then decrypt,
@@ -173,6 +176,32 @@ def test_encrypt_core_equals_the_jax_package(secret):
         want = jax_keys.encrypt(m[i], jsk, JCFG, rng=Replay([e[i].numpy(), *b[i].numpy()]))
         assert np.array_equal(cv.to_u64(a[i]), want.a)
         assert np.array_equal(cv.to_u64(b[i]), want.b)
+
+
+def _mod_words(words, span):
+    """(k, ...) int64 words in [0, 2^63), low first -> their integer mod
+    span, in Python integers."""
+    w = words.numpy().astype(object)
+    return sum(w[k] << (63 * k) for k in range(len(w))) % span
+
+
+@pytest.mark.parametrize("draw", ["secret", "encryption"])
+def test_seeded_draws_reduce_128_bits_of_slack(draw):
+    """A seeded uniform draw mod a span is three 63-bit words of the
+    generator (189 bits >= bit_length + 128 for 3 and the 60-bit moduli)
+    reduced exactly, in the order the draws ask for them."""
+    g = torch.Generator().manual_seed(4)
+    words = lambda shape: torch.empty((3,) + shape, dtype=torch.int64).random_(generator=g)
+    if draw == "secret":
+        got = keys.draw_secret(CFG, torch.Generator().manual_seed(4))
+        assert np.array_equal(got.numpy().astype(object), _mod_words(words((N,)), 3) - 1)
+        return
+    e, b = keys.draw_encryption(CFG, torch.Generator().manual_seed(4), (2,))
+    noise = torch.round(torch.normal(0.0, keys.SIGMA, (2, N), generator=g,
+                                     dtype=torch.float64)).to(torch.int64)
+    assert torch.equal(e, noise)
+    for m, q in enumerate(CFG.moduli[:CFG.n_limbs]):
+        assert np.array_equal(b[:, m].numpy().astype(object), _mod_words(words((2, N)), q))
 
 
 @pytest.mark.parametrize("limb", [0, 1])

@@ -223,6 +223,25 @@ def test_device_entry_points_default_to_the_card():
     assert AlohaDevice(device="cpu", spm_rows=8, ksk_rows=8).spm.device == CPU
 
 
+def test_gen_secret_draws_from_the_os_onto_the_card(monkeypatch):
+    """`keys.gen_secret(cfg)` with no generator and no device reads its
+    coefficients from the OS (17 bytes each, as the JAX package's
+    `SecureRng`) and puts the key on `cuda`; without a card that raises
+    instead of falling back to the CPU."""
+    from aloha_tpu_torch import config, keys
+
+    cfg = config.DEFAULT_CONFIG
+    read = []
+    urandom = os.urandom
+    monkeypatch.setattr(os, "urandom", lambda k: read.append(k) or urandom(k))
+    if torch.cuda.is_available():
+        assert keys.gen_secret(cfg).ntt.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            keys.gen_secret(cfg)
+    assert read == [17 * cfg.n]
+
+
 def test_check_rejects_bad_operands():
     x = torch.zeros((2, 4), dtype=torch.int64)
     dispatch.check(x, (2, 4), "x")
