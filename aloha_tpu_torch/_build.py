@@ -5,8 +5,9 @@ compiles each `csrc/*.cu` (all at once, one process per source) and one
 `nvcc -shared` links them into a shared library with a plain C interface
 (no PyTorch headers: seconds of build instead of minutes).  The library
 goes to `_build/` beside this file (listed in `.gitignore`), named by a
-hash of the sources, so an edit rebuilds and an unchanged tree reuses the
-last build.  Nothing here runs at import time.
+hash of the sources and of the nvcc command lines, so an edit of either
+rebuilds and an unchanged tree reuses the last build.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -70,11 +71,28 @@ def cuda_tool(name: str = "nvcc") -> str:
     raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built")
 
 
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def compile_command(nvcc: str, src: str, obj: str) -> list:
+    """The nvcc command that compiles one source into an object file."""
+    return [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-c", src, "-o", obj]
+
+
+def link_command(nvcc: str, lib: str, objs: list) -> list:
+    """The nvcc command that links the object files into the library."""
+    return [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+
+
 def library_path() -> pathlib.Path:
+    """The library of the current sources and command lines (their hash)."""
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for cmd in (compile_command("nvcc", "SRC", "OBJ"), link_command("nvcc", "LIB", ["OBJ"])):
+        h.update("\0".join(cmd).encode())
     return BUILD_DIR / f"libaloha_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -99,20 +117,17 @@ def build(verbose: bool = False) -> pathlib.Path:
         return out
     nvcc = cuda_tool()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         srcs = sorted(CSRC.glob("*.cu"))
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
-        logs = _run_all([
-            [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             "-c", str(src), "-o", obj]
-            for src, obj in zip(srcs, objs)
-        ])
+        logs = _run_all([compile_command(nvcc, str(src), obj) for src, obj in zip(srcs, objs)])
         lib_tmp = os.path.join(tmp, out.name)
-        logs += _run_all([[nvcc, *arch, "-shared", "-o", lib_tmp, *objs]])
+        logs += _run_all([link_command(nvcc, lib_tmp, objs)])
         if verbose:
             print("".join(logs), file=sys.stderr)
-        log_path().write_text("".join(logs))
+        log_tmp = os.path.join(tmp, log_path().name)
+        pathlib.Path(log_tmp).write_text("".join(logs))
+        os.replace(log_tmp, log_path())
         os.replace(lib_tmp, out)
     return out
 

@@ -29,25 +29,48 @@
 //   lanes  e_j^T (128 x R) = T_j^T (128 x 1024) . S'^T (1024 x R): A = the
 //          table, row c = column c of T_j; B = the data, column r holds
 //          k = kk 128 + l.
-// Warpgroup w owns lanes 64w .. 64w + 63 and issues wgmma m64nRk32 (N = R =
-// 64 or 32: one kernel, instantiated per ring).  Every operand lies K-major
+// Warpgroup w owns lanes 64w .. 64w + 63 and runs wgmma m64nNk32 (N = 32
+// or 64: one kernel, instantiated per ring).  Every operand lies K-major
 // in 128-byte k-blocks with the 128-byte swizzle of csrc/wgmma_s8.cuh (byte
 // kb of row r at 128 r + 16 ((kb / 16) ^ (r mod 8)) + kb mod 16, atoms
 // 1024-aligned); a k32 step is a 32-byte offset of the descriptor's start.
 //
-// Shape: one CTA of two warpgroups per (polynomial, modulus); grid (nb, M).
-// Shared memory (R = 64): the polynomial's words (64 KiB, resident for all k
+// Shape: one CTA of two warpgroups per (P polynomials, modulus); grid
+// (ceil(nb / P), M).  A CTA's words are RK rows of 128 (Ring<R> in
+// csrc/mxu_core.cuh), and each product takes them in RK / N column halves
+// of N = min(RK, 64), each with its own 32 (N = 64) or 16 accumulators:
+//   R = 32, 64    one polynomial, RK = R, N = R (the layout below);
+//   R = 2 .. 16   P = 64 / R polynomials side by side as n = 8192's 64
+//                 rows (RK = 64): the lane product is n = 8192's, each lane
+//                 tile read once for P polynomials; the row product is
+//                 n = 8192's with the host's block-diagonal table (A_j on
+//                 each polynomial's R x 8R block, zero digits elsewhere: P
+//                 times the row MACs the function needs, which stays below
+//                 half the lanes'), the bias b the ring's, and the
+//                 twiddles and c_row repeated P times; the last CTA's
+//                 missing polynomials are zeros and are not stored;
+//   R = 128       one polynomial, RK = 128 in two halves of N = 64: the rows
+//                 read all 8 k-blocks of the planes and one half of A_j's
+//                 rows a half, the lanes the planes' rows of the half and
+//                 every lane tile once a half.
+// Shared memory (RK = 64): the CTA's words (64 KiB, resident for all k
 // transforms: the epilogue writes the folded word there, the next split
-// reads it), its 8 digit planes (64 KiB: the split writes them swizzled,
+// reads it), their 8 digit planes (64 KiB: the split writes them swizzled,
 // fence.proxy.async and a barrier, then the products read them), and a ring
-// of SLOTS 16 KiB table slots.
+// of SLOTS 16 KiB table slots.  At RK = 128 the planes (128 KiB) and the
+// ring fill 193 KiB, and the words live in y (global memory; 128 KiB a
+// CTA, L2-resident): copied in from x, read by each split and written by
+// each epilogue, __syncthreads between the two as between the planes'
+// writes and the products' reads.
 //
 // The tables stream through the ring.  The host lays each (modulus,
 // direction) out once as the exact bytes of every shared-memory tile, in the
 // order the kernel reads them (ntt_mxu.table_stream): a row stage is the
-// (R x 128-byte) tiles of two k-blocks of one A_j (16 KiB at R = 64), a
-// lane stage the (128 x 128-byte) tile of one (j, plane) of T_j^T; 16 + 64
-// stages per transform at R = 64 (1.25 MiB), 8 + 64 at R = 32.  One 1-D
+// (N x 128-byte) tiles of two k-blocks of one A_j's rows of a half (16 KiB
+// at N = 64), a lane stage the (128 x 128-byte) tile of one (j, plane) of
+// T_j^T, every stage once a half; 16 + 64 stages per transform at RK = 64
+// (1.25 MiB a CTA: 1.25 / P MiB a polynomial), 8 + 64 at R = 32 (1.125
+// MiB), 64 + 128 at R = 128 (3 MiB).  One 1-D
 // bulk copy (cp.async.bulk, no tensor map) lands a stage ready for the
 // descriptors and completes on the slot's `full` mbarrier.  Thread 0 issues
 // the copies, predicated inside the PTX (no producer warp: a third
@@ -66,12 +89,13 @@
 // u_j << 8(j - 5) (j >= 5), u_j = e_j + 2^b, exact in u64 (lo < 2^58, hi <
 // 2^42) as in fold59; after j = 7 the tail of fold59 gives W.  So the words,
 // the lazy window and check_modulus's bound are the earlier kernel's.
-// Registers at R = 64: 32 outputs a thread x 4 of (lo, hi), 32 accumulators.
+// Registers at N = 64: 32 outputs a thread x 4 of (lo, hi), 32 accumulators.
 //
-// Bound on Hopper: a transform is 1.0066e8 int8 MACs (33.55 M in the rows,
-// 67.11 M in the lanes), 101.7 ns a polynomial at the dense peak of 1,979
+// Bound on Hopper: a transform is 8192 R^2 + 1,048,576 R int8 MACs (at R =
+// 64, 33.55 M in the rows and 67.11 M in the lanes), 2.15 ns a polynomial
+// at n = 256, 101.7 at 8192 and 271.3 at 16384 at the dense peak of 1,979
 // TOP/s over the card.  A CTA streams each table byte from L2 once per
-// transform (1.25 MiB of digits and 128 KiB of twiddles).  Measured
+// transform and half (and 8 RK 128 bytes of twiddles).  Measured at R = 64
 // (PERF.md; csrc/probe_mxu.cu's parts probe runs these steps with and
 // without the folds): the table stream, the products and the integer work
 // (splits, folds, epilogue) add with little overlap, and sharing each tile
@@ -87,7 +111,10 @@
 namespace {
 
 // x, y: (M, nb, R 128) u64; stream: per modulus Ring<R>::STAGES x TILE bytes
-// (ntt_mxu.table_stream); tw, tws: (M, R 128); crow: (M, R); ccol: (M, 128).
+// (ntt_mxu.table_stream); tw, tws: (M, RK 128); crow: (M, RK); ccol: (M,
+// 128), the constants of R < 32 repeated over the CTA's P polynomials
+// (ntt_mxu.kernel_tables).  CTA (b, m) takes polynomials b P .. b P + P - 1
+// of group m; the last CTA's missing ones are zeros, and are not stored.
 template <int R>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 ntt_mxu_kernel(const u64* __restrict__ x, u64* __restrict__ y, const signed char* __restrict__ stream,
@@ -95,24 +122,25 @@ ntt_mxu_kernel(const u64* __restrict__ x, u64* __restrict__ y, const signed char
                const u64* __restrict__ crow, const u64* __restrict__ ccol,
                const u64* __restrict__ qs, int nb, int k, int inverse) {
   using RingR = Ring<R>;
-  constexpr int n = R * LANES;
+  constexpr int n = RingR::RK * LANES;  // the CTA's words
+  constexpr int P = RingR::P;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const smem =
       smem_raw + (SW128_ATOM - smem_u32(smem_raw) % SW128_ATOM) % SW128_ATOM;
   unsigned char* const planes = smem;
   unsigned char* const slots = planes + RingR::PLANES;
-  u64* const sh = (u64*)(slots + SLOTS * TILE);
-  unsigned long long* const bars = (unsigned long long*)(sh + n);
+  u64* const words = (u64*)(slots + SLOTS * TILE);
+  unsigned long long* const bars = (unsigned long long*)(slots + SLOTS * TILE + RingR::WORD_BYTES);
   const int m = blockIdx.y;
   const u64 q = qs[m], delta = q - (1ull << 59);
   tw += (size_t)m * n;
   tws += (size_t)m * n;
-  crow += (size_t)m * R;
+  crow += (size_t)m * RingR::RK;
   ccol += (size_t)m * LANES;
   // the warpgroup, warp-uniform to the compiler (as CUTLASS takes it)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const RingR ring{slots, bars, bars + SLOTS, stream + (size_t)m * RingR::STAGES * TILE,
-                   inverse ? LANE_STAGES : 0, k * RingR::STAGES, threadIdx.x == 0};
+                   inverse ? RingR::LANE_STAGES_ALL : 0, k * RingR::STAGES, threadIdx.x == 0};
   if (ring.leader) {
     for (int i = 0; i < SLOTS; ++i) {
       mbar_init(ring.full + i, 1);
@@ -122,11 +150,15 @@ ntt_mxu_kernel(const u64* __restrict__ x, u64* __restrict__ y, const signed char
   }
   __syncthreads();
   for (int g = 0; g < SLOTS && g < ring.total; ++g) ring.load(g);
-  const size_t off = ((size_t)m * nb + blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += TF_THREADS) sh[i] = x[off + i];
+  const size_t off = ((size_t)m * nb + (size_t)blockIdx.x * P) * (R * LANES);
+  // the words of this CTA's polynomials (all n but in the last CTA of R < 32)
+  const int valid = P == 1 ? n : min(P, nb - (int)blockIdx.x * P) * (R * LANES);
+  u64* const sh = RingR::SMEM_WORDS ? words : y + off;
+  for (int i = threadIdx.x; i < n; i += TF_THREADS) sh[i] = i < valid ? x[off + i] : 0;
   __syncthreads();
   transforms<R>(planes, sh, ring, tw, tws, crow, ccol, q, delta, wg, k, inverse);
-  for (int i = threadIdx.x; i < n; i += TF_THREADS) y[off + i] = sh[i];
+  if constexpr (RingR::SMEM_WORDS)
+    for (int i = threadIdx.x; i < valid; i += TF_THREADS) y[off + i] = sh[i];
 }
 
 template <int R>
@@ -136,7 +168,8 @@ cudaError_t launch(int device, const void* x, void* y, const void* stream, const
   static bool attribute_set[MAX_DEVICES];  // per device: the kernel's shared-memory size
   const cudaError_t err = smem_once(ntt_mxu_kernel<R>, (int)Ring<R>::SMEM, device, attribute_set);
   if (err != cudaSuccess) return err;
-  ntt_mxu_kernel<R><<<dim3(nb, M), TF_THREADS, Ring<R>::SMEM, s>>>(
+  constexpr int P = Ring<R>::P;
+  ntt_mxu_kernel<R><<<dim3((nb + P - 1) / P, M), TF_THREADS, Ring<R>::SMEM, s>>>(
       (const u64*)x, (u64*)y, (const signed char*)stream, (const u64*)tw, (const u64*)tws,
       (const u64*)crow, (const u64*)ccol, (const u64*)qs, nb, k, inverse);
   return cudaGetLastError();
@@ -144,9 +177,10 @@ cudaError_t launch(int device, const void* x, void* y, const void* stream, const
 
 }  // namespace
 
-// x, y: (M, nb, 2^logn) int64, logn 12 or 13; stream: (M, STAGES x 16384)
-// int8 (ntt_mxu.table_stream of the direction), 16-byte aligned; tw, tws:
-// (M, 2^logn); crow: (M, R); ccol: (M, 128); qs: (M,); k >= 1.
+// x, y: (M, nb, 2^logn) int64, logn 8 .. 14 (R = 2 .. 128); stream: (M,
+// Ring<R>::STAGES x 16384) int8 (ntt_mxu.table_stream of the direction),
+// 16-byte aligned; tw, tws: (M, RK 128); crow: (M, RK); ccol: (M, 128);
+// qs: (M,); k >= 1.
 extern "C" int aloha_ntt_mxu(int device, const void* x, void* y, const void* stream,
                              const void* tw, const void* tws, const void* crow,
                              const void* ccol, const void* qs, int M, int nb, int logn, int k,
@@ -156,10 +190,20 @@ extern "C" int aloha_ntt_mxu(int device, const void* x, void* y, const void* str
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)cuda_stream;
   switch (logn) {
+    case 8:
+      return (int)launch<2>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
+    case 9:
+      return (int)launch<4>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
+    case 10:
+      return (int)launch<8>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
+    case 11:
+      return (int)launch<16>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
     case 12:
       return (int)launch<32>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
     case 13:
       return (int)launch<64>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
+    case 14:
+      return (int)launch<128>(device, x, y, stream, tw, tws, crow, ccol, qs, M, nb, k, inverse, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

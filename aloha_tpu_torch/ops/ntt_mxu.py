@@ -45,10 +45,14 @@ The kernel takes both products on `wgmma` in the transposed form (M = the
 128 lanes) and streams each (modulus, direction)'s tables through a ring
 of shared-memory slots by 1-D bulk copies; `table_stream` lays them out
 once as the exact bytes of every slot, in the order the kernel reads them.
-Bound on the H100: 1.0066e8 int8 MACs per transform, 101.7 ns per
-polynomial at the dense int8 peak; each CTA streams the 1.25 MiB of table
-once per transform from L2.  What holds it back is inside the SM, not the
-L2 stream (`csrc/ntt_mxu.cu`, PERF.md).
+It takes n = 256 .. 16384 (`KERNEL_RINGS`; `geometry`): below n = 4096 a
+CTA holds P = 8192 / n polynomials as n = 8192's 64 rows, its row tables
+block-diagonal (`packed_rows`); at n = 16384 each product runs in two
+column halves of 64.  Bound on the H100: 8192 R^2 + 1,048,576 R int8 MACs
+per transform (R = n / 128), 101.7 ns per polynomial at n = 8192 at the
+dense int8 peak; each CTA streams its 1.25 MiB of table once per transform
+from L2 (3 MiB at n = 16384).  What holds it back at n = 8192 is inside
+the SM, not the L2 stream (`csrc/ntt_mxu.cu`, PERF.md).
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ from aloha_tpu_torch.ops import dispatch
 
 LANES = 128
 NDIG = 8  # base-256 digits of a u64
-KERNEL_RINGS = (4096, 8192)  # R = 32 or 64: the N of the kernel's wgmma m64nRk32
+#: The rings the kernel takes: R = n / 128 = 2 .. 128 (the stream NTT's own cap).
+KERNEL_RINGS = (256, 512, 1024, 2048, 4096, 8192, 16384)
 TILE = 16384  # bytes of one stage of the kernel's table stream (one ring slot)
 
 #: One (modulus, direction): row (8, R, 8R) and lane (8, 1024, 128) int8
@@ -220,13 +225,39 @@ def swizzle128(rows: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(chunks[..., np.arange(r)[:, None], place, :]).reshape(rows.shape)
 
 
+def geometry(n: int):
+    """(RK, P, N) of csrc/mxu_core.cuh's Ring<R>, R = n / 128: a CTA's words
+    are RK rows of 128, P polynomials of R rows (R < 32: 64 rows, P = 64 /
+    R); each product step takes its RK output columns in RK / N products of
+    N = min(RK, 64) columns."""
+    R = n // LANES
+    RK = 64 if R < 32 else R
+    return RK, RK // R, min(RK, 64)
+
+
+def packed_rows(row: np.ndarray) -> np.ndarray:
+    """(8, R, 8R) row digits -> the (8, RK, 8 RK) ones of a CTA's P
+    polynomials: block-diagonal, [j, p R + i, kk RK + p R + r] = row[j, i,
+    kk R + r] and zero digits elsewhere, so that the P row products are one
+    of n = 8192's shape.  The identity at P = 1."""
+    nd, R, _ = row.shape
+    RK, P, _ = geometry(R * LANES)
+    out = np.zeros((nd, P, R, NDIG, P, R), dtype=row.dtype)
+    src = row.reshape(nd, R, NDIG, R)
+    for p in range(P):
+        out[:, p, :, :, p, :] = src
+    return out.reshape(nd, RK, NDIG * RK)
+
+
 def row_stages(row: np.ndarray) -> np.ndarray:
-    """(8, R, 8R) row digits -> (8 R / 32, 2 R 128) int8: stage (j, p) holds
-    the (R x 128-byte) tiles of k-blocks 2p and 2p + 1 of A_j (row i = row i
-    of A_j, bytes 128 kb .. 128 kb + 127), each swizzled."""
-    nd, R, K = row.shape
-    tiles = swizzle128(row.reshape(nd, R, K // LANES, LANES).transpose(0, 2, 1, 3))
-    return tiles.reshape(nd * K // (2 * LANES), 2 * R * LANES)
+    """(8, RK, 8 RK) row digits -> (RK / N x 8 RK / 32, 2 N 128) int8, N =
+    min(RK, 64): stage (h, j, p) holds the (N x 128-byte) tiles of k-blocks
+    2p and 2p + 1 of rows h N .. h N + N - 1 of A_j (row i = row i of A_j,
+    bytes 128 kb .. 128 kb + 127), each swizzled."""
+    nd, RK, K = row.shape
+    N = min(RK, 64)
+    tiles = row.reshape(nd, RK // N, N, K // LANES, LANES).transpose(1, 0, 3, 2, 4)
+    return swizzle128(tiles).reshape(RK // N * nd * K // (2 * LANES), 2 * N * LANES)
 
 
 def lane_stages(lane: np.ndarray) -> np.ndarray:
@@ -242,26 +273,37 @@ def table_stream(tb: Tables, inverse: bool) -> np.ndarray:
     """(stages, TILE) int8: the kernel's table stream of one (modulus,
     direction), each stage the exact bytes of one shared-memory slot, in the
     order the kernel reads them (rows then lanes forward, lanes then rows
-    inverse).  A row stage's 2 R 128 bytes are padded to TILE."""
-    rows = row_stages(tb.row)
+    inverse; each product's stages once per column half, RK / N times).  The
+    rows are `packed_rows`; a row stage's 2 N 128 bytes are padded to TILE."""
+    rows = row_stages(packed_rows(tb.row))
     rows = np.pad(rows, ((0, 0), (0, TILE - rows.shape[1])))
-    lanes = lane_stages(tb.lane)
+    RK, _, N = geometry(tb.tw.size)
+    lanes = np.concatenate([lane_stages(tb.lane)] * (RK // N))
     return np.concatenate([lanes, rows] if inverse else [rows, lanes])
+
+
+def kernel_constants(tb: Tables):
+    """(tw, tws, crow) as the kernel reads them: (RK 128,), (RK 128,), (RK,)
+    uint64, a small ring's repeated over its P polynomials."""
+    _, P, _ = geometry(tb.tw.size)
+    return np.tile(tb.tw.reshape(-1), P), np.tile(tb.tws.reshape(-1), P), np.tile(tb.crow, P)
 
 
 @functools.lru_cache(maxsize=16)
 def kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
     """Stacked per-modulus kernel operands on `device`: the table stream
-    (M, stages x TILE) int8, tw, tws, crow, ccol and q (int64)."""
+    (M, stages x TILE) int8, tw, tws (M, RK 128), crow (M, RK), ccol (M,
+    128) and q (int64)."""
     per = [tables_np(n, q, _forward_root(q, r, inverse), inverse) for q, r in zip(qs, roots)]
     stream = np.stack([table_stream(t, inverse).reshape(-1) for t in per])
+    tw, tws, crow = zip(*(kernel_constants(t) for t in per))
     return (torch.from_numpy(stream).to(device),
-            *(_stack_u64(per, f, device) for f in ("tw", "tws", "crow", "ccol")),
+            *(_stack_u64(a, device) for a in (tw, tws, crow, [t.ccol for t in per])),
             torch.tensor(qs, dtype=torch.int64, device=device))
 
 
-def _stack_u64(per, field: str, device) -> torch.Tensor:
-    return torch.from_numpy(np.stack([getattr(t, field).view(np.int64) for t in per])).to(device)
+def _stack_u64(arrays, device) -> torch.Tensor:
+    return torch.from_numpy(np.stack([a.reshape(-1).view(np.int64) for a in arrays])).to(device)
 
 
 # ----------------------------------------------------------- plain version
@@ -284,18 +326,22 @@ def _reduce(e, b: int, c, q: int):
 
 def row_products(x, row):
     """(nb, R, 128) -> the 8 exact row-product accumulators (8, nb, R, 128)
-    float64, data digits along the contraction k = kk R + r."""
+    float64, data digits along the contraction k = kk R + r: one 2-D
+    product (8 R x 8R) . (8R x nb 128), no operand repeated over the batch."""
     nb, R, L = x.shape
-    s = _digits(x).permute(1, 0, 2, 3).reshape(nb, NDIG * R, L)
-    return torch.matmul(row[:, None], s[None])
+    s = _digits(x).permute(0, 2, 1, 3).reshape(NDIG * R, nb * L)
+    e = torch.matmul(row.reshape(NDIG * R, NDIG * R), s)
+    return e.reshape(NDIG, R, nb, L).transpose(1, 2)
 
 
 def lane_products(x, lane):
     """(nb, R, 128) -> the 8 exact lane-product accumulators (8, nb, R, 128)
-    float64, data digits along the contraction k = kk 128 + l."""
+    float64, data digits along the contraction k = kk 128 + l: one 2-D
+    product (nb R x 1024) . (1024 x 8 128)."""
     nb, R, L = x.shape
-    s = _digits(x).permute(1, 2, 0, 3).reshape(nb, R, NDIG * L)
-    return torch.matmul(s[None], lane[:, None])
+    s = _digits(x).permute(1, 2, 0, 3).reshape(nb * R, NDIG * L)
+    e = torch.matmul(s, lane.permute(1, 0, 2).reshape(NDIG * L, NDIG * L))
+    return e.reshape(nb, R, NDIG, L).permute(2, 0, 1, 3)
 
 
 def _row_step(x, tb: Tables, q: int):

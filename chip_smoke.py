@@ -8,10 +8,12 @@ Phases, each printing its own line; any failure exits nonzero:
      as `nvidia-smi --query-gpu=name,power.limit` gives it;
   2. build: compiles aloha_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
      per source, all at once) into aloha_tpu_torch/_build/; the SASS
-     (cuobjdump) of the rate kernel and of the tensor-core transform holds
-     IGMMA and no IMMA; ptxas' registers and spill of each instance of
-     csrc/ntt.cu's register-pass transform (45: one CTA a polynomial, and
-     clusters of 2 and 4 CTAs) and of csrc/ks.cu's two kernels (one CTA a
+     (cuobjdump) of the rate kernel and of each of the tensor-core
+     transform's seven instances (ntt_mxu_kernel<R>, R = 2-128) holds
+     IGMMA and no IMMA, and each instance's registers and spill; ptxas'
+     registers and spill of each instance of csrc/ntt.cu's register-pass
+     transform (45: one CTA a polynomial, and clusters of 2 and 4 CTAs)
+     and of csrc/ks.cu's two kernels (one CTA a
      polynomial at n = 1-8192; ks_tail also a cluster of 4 at 8192); the
      lane kernel's and csrc/probe_ops.cu's 15 variants' registers, no
      spill, and in the SASS of probe_ops shared-memory accesses and
@@ -37,9 +39,14 @@ Phases, each printing its own line; any failure exits nonzero:
      directions, M = 1, 3 and 4 (the three-limb ring's L+1 moduli), nb = 1,
      131, 132, 133 and 264, on words at
      the top of its input window (compared); ntt_mxu and its chain (k = 1,
-     2, 3) at N = 4096 and 8192, both
-     directions, nb = 1, 131, 132, 133 and 264, on words at the ends of
-     the fold's range (0, q - 1, 2^63 - 1) and random ones (compared);
+     2, 3) at every ring of ntt_mxu.KERNEL_RINGS (n = 256-16384), both
+     directions, on 1, 132 P - 1, 132 P, 132 P + 1 and 264 P polynomials
+     (P = 8192 / n a CTA below 4096, else 1), on words at the ends of
+     the fold's range (0, q - 1, 2^63 - 1) and random ones (compared),
+     then per ring both directions at nb = 64 against their plain versions
+     and bound, the chain's marginal ns per polynomial per transform (k =
+     1 -> 9, nb = 256 and 256 P) beside its bound, the stream NTT at the
+     same shapes, and the ring's launches and seconds;
   4. serve: three encrypted matrix-vector requests, each a batch of 16
      ciphertexts through he_torch.matvec_bsgs (D=16 diagonals, g=4) and
      rescale, with keys, encodings and encryptions made by the port
@@ -212,6 +219,7 @@ path; each kernel's bound from this run's shapes); the last line is
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -285,15 +293,44 @@ def phase_build():
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {_build.library_path().name}",
           flush=True)
-    for kernel, what in (("mxu_rate_kernel", "the rate kernel"),
-                         ("ntt_mxu_kernel", "the tensor-core transform")):
-        sass = _build.sass_counts(kernel, ("IGMMA", "IMMA"))
-        print(f"build: SASS of {what}: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA", flush=True)
-        if not sass["IGMMA"] or sass["IMMA"]:
-            fail(f"{what} is not on integer warpgroup products alone: {sass}")
+    sass = _build.sass_counts("mxu_rate_kernel", ("IGMMA", "IMMA"))
+    print(f"build: SASS of the rate kernel: {sass['IGMMA']} IGMMA, {sass['IMMA']} IMMA",
+          flush=True)
+    if not sass["IGMMA"] or sass["IMMA"]:
+        fail(f"the rate kernel is not on integer warpgroup products alone: {sass}")
     registers = ntt_registers()
     return (registers, ks_registers(), lane_registers(), ops_registers(), parts_registers(),
-            stage_registers(registers), dma_registers(), dyn_registers())
+            stage_registers(registers), dma_registers(), dyn_registers(), mxu_registers())
+
+
+def mxu_registers() -> dict:
+    """{R: (registers, spill store bytes, spill load bytes)} of each instance
+    of csrc/ntt_mxu.cu's ntt_mxu_kernel<R> (one a ring of
+    ntt_mxu.KERNEL_RINGS), from ptxas' report, spill reported and not
+    failed; fails unless each instance's SASS holds IGMMA (wgmma on s8) and
+    no IMMA (mma.sync)."""
+    from aloha_tpu_torch import _build
+    from aloha_tpu_torch.ops import ntt_mxu
+
+    def ring(name):
+        return int(re.search(r"ntt_mxu_kernelILi(\d+)E", name).group(1))
+
+    usage = {ring(k): v for k, v in _build.ptxas_usage("ntt_mxu_kernel").items()}
+    listing = {ring(k): v for k, v in _build.sass_listing("ntt_mxu_kernel").items()}
+    want = {n // 128 for n in ntt_mxu.KERNEL_RINGS}
+    if set(usage) != want or set(listing) != want:
+        fail(f"ntt_mxu_kernel instances: ptxas {sorted(usage)}, SASS {sorted(listing)}, "
+             f"expected {sorted(want)}")
+    for R in sorted(want):
+        words = [w for line in listing[R] for w in line.split()]
+        igmma = sum(w == "IGMMA" or w.startswith("IGMMA.") for w in words)
+        imma = sum(w == "IMMA" or w.startswith("IMMA.") for w in words)
+        regs, st, ld = usage[R]
+        print(f"build: ntt_mxu_kernel<{R}> (n={128 * R}): {regs} registers, spill stores "
+              f"{st} B, loads {ld} B; SASS {igmma} IGMMA, {imma} IMMA", flush=True)
+        if not igmma or imma:
+            fail(f"ntt_mxu_kernel<{R}> is not on integer warpgroup products alone")
+    return usage
 
 
 #: template instances of csrc/ntt.cu's ntt_regs_kernel<LOGN, INV, C>: both
@@ -593,19 +630,20 @@ def ks_tail_work(nb_in: int, nb_out: int, K: int, shoup: bool, cfg=None):
     return nbytes, nb_out * tail, "int32"
 
 
-def mxu_work(nb: int, M: int, k: int = 1):
-    """One csrc/ntt_mxu.cu launch: nb x M N=8192 polynomials in and out, k
+def mxu_work(nb: int, M: int, k: int = 1, n: int = 8192):
+    """One csrc/ntt_mxu.cu launch: nb x M length-n polynomials in and out, k
     chained transforms each, one set of digit tables per modulus.  A 4-step
-    transform's int8 MACs: 8 digit planes of the (R x R) row product over
-    K = 8R, then of the (128 x 128) lane product over K = 1024."""
-    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
+    transform's int8 MACs (R = n / 128): 8 digit planes of the (R x R) row
+    product over K = 8R, then of the (128 x 128) lane product over K =
+    1024; the work the function needs, not the zero digits of the small
+    rings' block-diagonal row tables."""
     from aloha_tpu_torch.ops import ntt_mxu
 
-    n = CFG.n
     R = n // 128
     macs = 8 * R * 128 * 8 * R + 8 * R * 128 * 1024
     # every modulus and direction has tables of the same sizes
-    tables = sum(a.nbytes for a in ntt_mxu.tables_np(n, CFG.moduli[0], CFG.psi[0], False))
+    (q,), (root,) = ntt_ring(n, 1, False)
+    tables = sum(a.nbytes for a in ntt_mxu.tables_np(n, q, root, False))
     return nb * M * n * 16 + M * tables, 2 * nb * M * k * macs, "int8"
 
 
@@ -762,7 +800,7 @@ def phase_kernels(card: str, dev):
                  lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
                  lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv), mxu_work(16, 1, 3))
     ntt_shapes(dev, results)
-    mxu_shapes(dev, results)
+    mxu_shapes(card, dev, results)
     return results
 
 
@@ -847,22 +885,37 @@ def ntt_shapes(dev, results: dict):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def mxu_shapes(dev, results: dict):
+#: polynomials of each ring's timed cases (MXU_MARGINAL_K's chain: common.NB_TIME)
+MXU_TIME_NB = 64
+
+
+def mxu_shapes(card: str, dev, results: dict):
     """ntt_mxu and its chain (k = 1, 2, 3) against their plain versions at
-    both rings, both directions and nb = 1, 131, 132, 133, 264 (one CTA,
-    about one wave of 132 SMs, two waves): polynomial p all zeros, all
-    q - 1, all 2^63 - 1 or random words below 2^63, by p mod 4."""
+    every ring the kernel takes (ntt_mxu.KERNEL_RINGS, n = 256-16384), both
+    directions, on 1, 132 P - 1, 132 P, 132 P + 1 and 264 P polynomials (P
+    a CTA: one CTA, about one wave of 132 SMs, two waves, the last CTA one
+    short): polynomial p all zeros, all q - 1, all 2^63 - 1 or random words
+    below 2^63, by p mod 4.  Then per ring: both directions at nb =
+    MXU_TIME_NB against their plain versions and bound, the chain's
+    marginal ns per polynomial per transform (k = 1 -> 9 at common.NB_TIME
+    polynomials, and at common.NB_TIME CTAs: NB_TIME P polynomials) beside
+    its bound, and the stream NTT (ntt_stream.transform, row 1's
+    kernel) at the same shapes as a yardstick; the launches and seconds of
+    each ring."""
     import numpy as np
     import torch
 
-    from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
-    from aloha_tpu_torch.ops import ntt_mxu
+    from aloha_tpu_torch.ops import ntt_mxu, ntt_stream
+    from aloha_tpu_torch.probes import common
 
-    t0, q, count = time.perf_counter(), CFG.moduli[0], 0
+    t_all, count = time.perf_counter(), 0
     for n in ntt_mxu.KERNEL_RINGS:
+        t0 = time.perf_counter()
+        launches0 = ntt_mxu.transform.launches + ntt_mxu.chain.launches
+        P = ntt_mxu.geometry(n)[1]
         for inv in (False, True):
-            root = pow((CFG.ipsi if inv else CFG.psi)[0], CFG.n // n, q)
-            for nb in (1, 131, 132, 133, 264):
+            (q,), (root,) = ntt_ring(n, 1, inv)
+            for nb in (1, 132 * P - 1, 132 * P, 132 * P + 1, 264 * P):
                 a = np.random.default_rng(nb).integers(0, (1 << 63) - 1, size=(nb, n),
                                                        dtype=np.int64)
                 a[0::4], a[1::4], a[2::4] = 0, q - 1, (1 << 63) - 1
@@ -878,8 +931,55 @@ def mxu_shapes(dev, results: dict):
                                   lambda: ntt_mxu.chain_plain(x, q, root, k, inv))
                     results.setdefault("ntt_mxu_chain", []).append((f"{label} k={k}", err))
                 count += 4
+        ring = {}
+        for inv in (False, True):
+            (q,), (root,) = ntt_ring(n, 1, inv)
+            name = "inv" if inv else "fwd"
+            x = torch.from_numpy(np.random.default_rng(n).integers(
+                0, q, size=(1, common.NB_TIME, n), dtype=np.uint64).view(np.int64)).to(dev)
+            x1 = x[:, :MXU_TIME_NB]
+            check(results, card, "ntt_mxu", f"{name} q0 (1, {MXU_TIME_NB}, {n})",
+                  lambda: ntt_mxu.transform(x1, (q,), (root,), inv),
+                  lambda: ntt_mxu.transform_plain(x1, (q,), (root,), inv),
+                  mxu_work(MXU_TIME_NB, 1, 1, n))
+            _, _, k_us, p_us, b_us, _ = results["ntt_mxu"][-1]
+            s_us = time_us(lambda: ntt_stream.transform(x1, (q,), (root,), inv))
+            ring[name] = {"us": k_us, "plain_us": p_us, "bound_us": b_us, "ntt_stream_us": s_us}
+            if not inv:
+                ns, t_lo, t_hi, spread = common.marginal(
+                    lambda k: ntt_mxu.chain(x[0], q, root, k, False), MXU_MARGINAL_K)
+                bound_ns = mxu_work(1, 1, 1, n)[1] / PEAK["int8"] * 1e9
+                lo, hi = MXU_MARGINAL_K
+                results.setdefault("marginal", {}).setdefault("ntt_mxu_chain", {})[
+                    f"n={n} k={lo}->{hi} nb={common.NB_TIME}"] = (ns, bound_ns)
+                ring["chain_marginal_ns"], ring["chain_bound_ns"] = ns, bound_ns
+                ring["chain_t_ms"] = (t_lo, t_hi, spread)
+                ring["chain_marginal_ns_full"] = ns
+                if P > 1:  # the same at NB_TIME CTAs (NB_TIME P polynomials), as n = 8192's
+                    xp = torch.from_numpy(np.random.default_rng(n + 1).integers(
+                        0, q, size=(common.NB_TIME * P, n), dtype=np.uint64).view(
+                            np.int64)).to(dev)
+                    ns_p = common.marginal(lambda k: ntt_mxu.chain(xp, q, root, k, False),
+                                           MXU_MARGINAL_K)[0] / P
+                    results["marginal"]["ntt_mxu_chain"][
+                        f"n={n} k={lo}->{hi} nb={common.NB_TIME * P}"] = (ns_p, bound_ns)
+                    ring["chain_marginal_ns_full"] = ns_p
+        ring["launches"] = ntt_mxu.transform.launches + ntt_mxu.chain.launches - launches0
+        ring["seconds"] = time.perf_counter() - t0
+        results.setdefault("mxu_rings", {})[n] = ring
+        f, i = ring["fwd"], ring["inv"]
+        print(f"kernel ntt_mxu ring n={n} (P={P} a CTA): fwd {f['us']:.1f} inv {i['us']:.1f} us "
+              f"at nb={MXU_TIME_NB} bound_us={f['bound_us']:.2f} plain_us={f['plain_us']:.1f}, "
+              f"{i['plain_us']:.1f}; chain marginal {ring['chain_marginal_ns']:.3f} ns per "
+              f"polynomial per transform bound_ns={ring['chain_bound_ns']:.3f} (k={lo}->{hi} "
+              f"nb={common.NB_TIME}, t {ring['chain_t_ms'][0]:.4f} -> "
+              f"{ring['chain_t_ms'][1]:.4f} ms, spread {ring['chain_t_ms'][2]:.4f}), "
+              f"{ring['chain_marginal_ns_full']:.3f} ns at nb={common.NB_TIME * P} "
+              f"({common.NB_TIME} CTAs); ntt_stream "
+              f"fwd {f['ntt_stream_us']:.1f} inv {i['ntt_stream_us']:.1f} us at the same shapes; "
+              f"launches {ring['launches']}, {ring['seconds']:.1f} s on {card}", flush=True)
     print(f"kernels: ntt_mxu and its chain equal at {count} shapes (n, direction, nb, k) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
 
 
 def phase_bench(card: str, dev, results: dict):
@@ -2413,7 +2513,7 @@ def main():
               f"INT32 issue {INT32_LANES} lanes x {clock:.0f} MHz (clocks.max.sm)", flush=True)
         t0 = time.perf_counter()
         (registers, ks_registers_, lane_registers_, ops_registers_, parts_registers_,
-         stage_registers_, dma_registers_, dyn_registers_) = phase_build()
+         stage_registers_, dma_registers_, dyn_registers_, mxu_registers_) = phase_build()
         dev = torch.device("cuda", 0)
         results = phase_kernels(card, dev)
         seconds = {"build+kernels": time.perf_counter() - t0}
@@ -2513,6 +2613,9 @@ def main():
         if name == "ntt":
             entry["isa_shape"] = results["isa_shape"]
             entry["registers"] = {k: v for k, v in registers.items() if "2^13 " in k}
+        if name in ("ntt_mxu", "ntt_mxu_chain"):
+            entry["registers"] = {f"n={128 * R}": v for R, v in sorted(mxu_registers_.items())}
+            entry["rings"] = results["mxu_rings"]
         if name == "probe_lane_stages":
             entry["registers"] = lane_registers_
         if name == "probe_ops":

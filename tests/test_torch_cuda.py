@@ -273,13 +273,14 @@ def _fold_ends(nb, n, q, seed):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("n", ntt_mxu.KERNEL_RINGS)
 def test_ntt_mxu_shapes_and_fold_ends(dev, n, inverse):
-    """transform and chain (k = 1, 2, 3) at nb = 1, 131, 132, 133 and 264
-    (one CTA, about one wave of 132 SMs, two waves)."""
-    q = CFG.moduli[0]
-    root = pow((CFG.ipsi if inverse else CFG.psi)[0], CFG.n // n, q)
-    for nb in (1, 131, 132, 133, 264):
+    """transform and chain (k = 1, 2, 3) at every ring the kernel takes, on
+    1, 132 P - 1, 132 P, 132 P + 1 and 264 P polynomials (P a CTA: one CTA,
+    about one wave of 132 SMs, two waves; the last CTA short of P by one)."""
+    (q,), (root,) = _ring(n, 1, inverse)
+    P = ntt_mxu.geometry(n)[1]
+    for nb in (1, 132 * P - 1, 132 * P, 132 * P + 1, 264 * P):
         x = torch.from_numpy(_fold_ends(nb, n, q, nb)).to(dev)
         before = (ntt_mxu.transform.launches, ntt_mxu.chain.launches)
         got = ntt_mxu.transform(x[None], (q,), (root,), inverse)
@@ -294,11 +295,16 @@ def test_ntt_mxu_shapes_and_fold_ends(dev, n, inverse):
 
 
 def test_ntt_mxu_compiles_to_integer_warpgroup_products(dev):
-    """The transform's SASS holds IGMMA (wgmma on s8) and no IMMA (mma.sync)."""
+    """Each instance of the transform (one a ring) holds IGMMA (wgmma on s8)
+    in its SASS and no IMMA (mma.sync)."""
     from aloha_tpu_torch import _build
 
-    sass = _build.sass_counts("ntt_mxu_kernel", ("IGMMA", "IMMA"))
-    assert sass["IGMMA"] and not sass["IMMA"], sass
+    listing = _build.sass_listing("ntt_mxu_kernel")
+    assert len(listing) == len(ntt_mxu.KERNEL_RINGS), sorted(listing)
+    for name, code in listing.items():
+        words = [w for line in code for w in line.split()]
+        assert any(w == "IGMMA" or w.startswith("IGMMA.") for w in words), name
+        assert not any(w == "IMMA" or w.startswith("IMMA.") for w in words), name
 
 
 def test_ntt_mxu_rejects_bad_operands(dev):
@@ -311,9 +317,12 @@ def test_ntt_mxu_rejects_bad_operands(dev):
                           (q,), (psi,), False)
     with pytest.raises(ValueError, match="contiguous"):
         ntt_mxu.chain(torch.zeros((N, 2), dtype=torch.int64, device=dev).t(), q, psi, 2, False)
-    with pytest.raises(ValueError, match="ring degree"):
-        ntt_mxu.transform(torch.zeros((1, 2, 2048), dtype=torch.int64, device=dev),
-                          (q,), (psi,), False)
+    for n in (128, 1000, 32768):
+        with pytest.raises(ValueError, match="ring degree"):
+            ntt_mxu.transform(torch.zeros((1, 2, n), dtype=torch.int64, device=dev),
+                              (q,), (psi,), False)
+        with pytest.raises(ValueError, match="ring degree"):
+            ntt_mxu.chain(torch.zeros((2, n), dtype=torch.int64, device=dev), q, psi, 2, False)
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -4,20 +4,25 @@ Inputs are seeded NumPy arrays fed to both packages; every comparison is
 word-exact (integer arithmetic, tolerance 0):
 - the digit tables equal `aloha_tpu.ops.ntt_mxu._fwd_tables_np` /
   `_inv_tables_np` (planes converted back to u64);
-- `transform_plain` and `chain_plain` equal `ntt_np` and the JAX MXU kernel
-  run in Pallas interpret mode, as tests/test_ntt_mxu_interpret.py runs it;
-- csrc/ntt_mxu.cu's layouts, modelled in NumPy: the table stream read back
-  through the wgmma descriptors' 128-byte swizzle rebuilds the tables, each
-  split writes every digit byte once where the descriptors read it, the
-  accumulator fragments cover each output once, and the whole data flow
-  (splits, stream, descriptor offsets, the digit-at-a-time fold) equals the
-  plain version at n = 4096 and 8192;
+- `transform_plain` and `chain_plain` equal `ntt_np` (n = 1024 - 16384)
+  and the JAX MXU kernel run in Pallas interpret mode (n = 256 - 1024), as
+  tests/test_ntt_mxu_interpret.py runs it;
+- csrc/ntt_mxu.cu's layouts, modelled in NumPy at every ring the kernel
+  takes (n = 256 .. 16384): the table stream read back through the wgmma
+  descriptors' 128-byte swizzle rebuilds the tables (the small rings' row
+  tables block-diagonal over a CTA's P polynomials, n = 16384's stages once
+  per column half), each split writes every digit byte once where the
+  descriptors read it, the accumulator fragments cover each output once,
+  and the whole data flow (P polynomials a CTA with a short last CTA, the
+  splits, the stream, the descriptor offsets, the column halves, the
+  digit-at-a-time fold) equals the plain version;
 - csrc/probe_mxu.cu's parts probe on that model at n = 8192: the XOR
   epilogue equals `probe_mxu_parts`' mxu step, the fake accumulators folded
   a digit at a time with the wide carry its vpu step, the fold with the
   final fold on every repetition `chain_plain`, and its table bytes the
   kernel operands each variant reads;
-- inputs >= q, bad moduli and bad ring degrees;
+- inputs >= q, bad moduli and bad ring degrees, on the plain version and
+  on the kernel's path (n = 32768 there too);
 - the bench refuses to run without CUDA, and names no form that is not
   bit-exact.
 """
@@ -66,6 +71,20 @@ def _residues(rng, q, shape):
     return a
 
 
+def _root(n, limb, inverse):
+    """The limb's root of order 2n, psi or (inverse) psi^-1: psi^(8192 / n)
+    of DEFAULT_CONFIG's up to n = 8192, else g^((q - 1) / 2n) for the first
+    g that has that order."""
+    cfg = DEFAULT_CONFIG
+    q = cfg.moduli[limb]
+    if n <= cfg.n:
+        psi = pow(cfg.psi[limb], cfg.n // n, q)
+    else:
+        psi = next(r for r in (pow(g, (q - 1) // (2 * n), q) for g in range(2, 100))
+                   if pow(r, n, q) == q - 1)
+    return pow(psi, -1, q) if inverse else psi
+
+
 def _planes(a):
     nb, n = a.shape
     return (jnp.asarray((a & np.uint64(0xFFFFFFFF)).astype(np.uint32).reshape(nb, -1, 128)),
@@ -73,12 +92,14 @@ def _planes(a):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("limb", [0, 2])
-def test_tables_equal_jax(limb, inverse):
-    q, psi = C1K.moduli[limb], C1K.psi[limb]
-    got = ntt_mxu.tables_np(1024, q, psi, inverse)
+@pytest.mark.parametrize("n, limb", [(1024, 0), (1024, 2), (256, 0), (16384, 1)])
+def test_tables_equal_jax(n, limb, inverse):
+    """At n = 256 and 16384 the row bias exponent is bias_bits(8R) = 18 and
+    24, which crow carries."""
+    q, psi = DEFAULT_CONFIG.moduli[limb], _root(n, limb, False)
+    got = ntt_mxu.tables_np(n, q, psi, inverse)
     build = jax_mxu._inv_tables_np if inverse else jax_mxu._fwd_tables_np
-    row, lane, dp, ca, cb = build(1024, q, psi)
+    row, lane, dp, ca, cb = build(n, q, psi)
     crow, ccol = (cb, ca) if inverse else (ca, cb)
     assert np.array_equal(got.row, row) and got.row.dtype == np.int8
     assert np.array_equal(got.lane, lane) and got.lane.dtype == np.int8
@@ -89,25 +110,33 @@ def test_tables_equal_jax(limb, inverse):
     assert np.array_equal(got.ccol, _u64(*ccol)[0, :])
 
 
-@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("n", [1024, 2048, 8192, 16384])
 def test_plain_matches_ntt_np(n):
-    """All three moduli in one call (M=3) at n=1024; q0 at n=8192."""
-    cfg = C1K if n == 1024 else DEFAULT_CONFIG
-    limbs = range(3) if n == 1024 else range(1)
-    qs = tuple(cfg.moduli[m] for m in limbs)
+    """All three moduli in one call (M=3) at n=1024; q0 at the other rings."""
+    if n == 1024:
+        limbs = range(3)
+        qs = tuple(C1K.moduli)
+        psis, ipsis = C1K.psi, C1K.ipsi
+    else:
+        limbs = range(1)
+        qs = (DEFAULT_CONFIG.moduli[0],)
+        psis, ipsis = (_root(n, 0, False),), (_root(n, 0, True),)
     rng = np.random.default_rng(n)
     a = np.stack([_residues(rng, q, (2, n)) for q in qs])
     x = cv.from_u64(a, CPU)
-    fwd = cv.to_u64(ntt_mxu.transform_plain(x, qs, [cfg.psi[m] for m in limbs], False))
-    inv = cv.to_u64(ntt_mxu.transform_plain(x, qs, [cfg.ipsi[m] for m in limbs], True))
+    fwd = cv.to_u64(ntt_mxu.transform_plain(x, qs, [psis[m] for m in limbs], False))
+    inv = cv.to_u64(ntt_mxu.transform_plain(x, qs, [ipsis[m] for m in limbs], True))
     for i, m in enumerate(limbs):
-        assert np.array_equal(fwd[i], ntt_np.ntt(a[i], qs[i], cfg.psi[m]))
-        assert np.array_equal(inv[i], ntt_np.intt(a[i], qs[i], cfg.ipsi[m]))
+        assert np.array_equal(fwd[i], ntt_np.ntt(a[i], qs[i], psis[m]))
+        assert np.array_equal(inv[i], ntt_np.intt(a[i], qs[i], ipsis[m]))
 
 
-def test_plain_matches_jax_interpret(interpret):
-    q, psi, ipsi = C1K.moduli[0], C1K.psi[0], C1K.ipsi[0]
-    a = _residues(np.random.default_rng(3), q, (2, 1024))
+@pytest.mark.parametrize("n", [256, 512, 1024])
+def test_plain_matches_jax_interpret(interpret, n):
+    """The rings of R = 2, 4 and 8 (roots psi^(1024 / n) of C1K's)."""
+    q = C1K.moduli[0]
+    psi, ipsi = (pow(r, 1024 // n, q) for r in (C1K.psi[0], C1K.ipsi[0]))
+    a = _residues(np.random.default_rng(3), q, (2, n))
     x = cv.from_u64(a[None], CPU)
     fwd = cv.to_u64(ntt_mxu.transform_plain(x, (q,), (psi,), False)[0])
     assert np.array_equal(fwd, np.asarray(jax_mxu.ntt(jnp.asarray(a), q, psi)))
@@ -150,10 +179,24 @@ def test_inputs_at_or_above_q_give_the_same_words(limb):
     (1024, (1 << 60) - 1, "fold margin"),
     (128, DEFAULT_CONFIG.moduli[0], "ring degree"),
     (1000, DEFAULT_CONFIG.moduli[0], "ring degree"),
+    (32768, DEFAULT_CONFIG.moduli[0], "ring degree"),
 ])
-def test_bad_moduli_and_rings_raise(n, q, match):
-    with pytest.raises(ValueError, match=match):
+def test_bad_moduli_and_rings_raise(n, q, match, monkeypatch):
+    """The plain version (CPU tensors) raises on each case but n = 32768,
+    which it takes as the reference does; the kernel's path (CUDA tensors;
+    here CPU ones sent down it, the kernel library a stand-in that fails the
+    test if reached) raises on every case before a launch."""
+    if n <= 16384:
+        with pytest.raises(ValueError, match=match):
+            ntt_mxu.check_modulus(n, q)
+        with pytest.raises(ValueError, match=match):
+            ntt_mxu.transform(torch.zeros((1, 1, n), dtype=torch.int64), (q,), (3,), False)
+        with pytest.raises(ValueError, match=match):
+            ntt_mxu.chain(torch.zeros((1, n), dtype=torch.int64), q, 3, 2, False)
+    else:
         ntt_mxu.check_modulus(n, q)
+    monkeypatch.setattr(ntt_mxu.dispatch, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(ntt_mxu._build, "lib", lambda: pytest.fail("the kernel was reached"))
     with pytest.raises(ValueError, match=match):
         ntt_mxu.transform(torch.zeros((1, 1, n), dtype=torch.int64), (q,), (3,), False)
     with pytest.raises(ValueError, match=match):
@@ -181,11 +224,13 @@ MASK59 = np.uint64((1 << 59) - 1)
 M32 = np.uint64(0xFFFFFFFF)
 
 
+RINGS = ntt_mxu.KERNEL_RINGS
+
+
 def _ring(n, limb, inverse):
-    """(q, root, Tables) at ring degree n: psi^(8192 / n) of the limb's root."""
-    cfg = DEFAULT_CONFIG
-    q = cfg.moduli[limb]
-    root = pow((cfg.ipsi if inverse else cfg.psi)[limb], cfg.n // n, q)
+    """(q, root, Tables) at ring degree n under the limb's modulus (`_root`)."""
+    q = DEFAULT_CONFIG.moduli[limb]
+    root = _root(n, limb, inverse)
     return q, root, ntt_mxu.tables_np(n, q, ntt_mxu._forward_root(q, root, inverse), inverse)
 
 
@@ -238,67 +283,80 @@ def _split_lanes(words):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("n", RINGS)
 def test_table_stream_rebuilds_the_tables(n, inverse):
     """Read back through the descriptors' swizzle at the kernel's offsets,
-    the stream's stages rebuild tables_np(...).row (stage (j, p): the R x
-    128-byte tiles of k-blocks 2p, 2p + 1 of A_j, padded to 16 KiB) and
-    .lane (stage (j, kk): row c of T_j^T, bytes l of k = 128 kk + l), rows
+    the stream's stages rebuild the row digits of a CTA's P polynomials
+    (stage (h, j, p): the N x 128-byte tiles of k-blocks 2p, 2p + 1 of rows
+    h N .. h N + N - 1 of A_j, padded to 16 KiB), tables_np(...).row on the
+    diagonal blocks and zero digits elsewhere, and, once per column half,
+    .lane (stage (j, kk): row c of T_j^T, bytes l of k = 128 kk + l); rows
     first forward and lanes first inverse."""
-    _, _, tb = _ring(n, 2, inverse)
+    _, _, tb = _ring(n, 2 if n <= 8192 else 1, inverse)
     R = n // 128
+    RK, P, N = ntt_mxu.geometry(n)
     stream = ntt_mxu.table_stream(tb, inverse)
-    nrow = 8 * R // 32
-    assert stream.shape == (nrow + 64, ntt_mxu.TILE) and stream.dtype == np.int8
-    rows, lanes = (stream[64:], stream[:64]) if inverse else (stream[:nrow], stream[nrow:])
-    assert not rows[:, 2 * R * 128:].any()
-    row = np.empty_like(tb.row)
+    nrow, nlane = RK // N * 8 * RK // 32, RK // N * 64
+    assert stream.shape == (nrow + nlane, ntt_mxu.TILE) and stream.dtype == np.int8
+    rows, lanes = (stream[nlane:], stream[:nlane]) if inverse else (stream[:nrow], stream[nrow:])
+    assert not rows[:, 2 * N * 128:].any()
+    packed = np.empty((8, RK, 8 * RK), dtype=np.int8)
     for s, tile in enumerate(rows):
-        j, p = divmod(s, R // 32)
+        h, jp = divmod(s, 8 * RK // 32)
+        j, p = divmod(jp, RK // 32)
         for kb in range(2):
-            row[j, :, 128 * (2 * p + kb):128 * (2 * p + kb + 1)] = _read(tile, kb * R * 128, R, 128)
-    assert np.array_equal(row, tb.row)
-    lane = np.empty_like(tb.lane)
-    for s, tile in enumerate(lanes):
-        j, kk = divmod(s, 8)
-        lane[j, 128 * kk:128 * (kk + 1), :] = _read(tile, 0, 128, 128).T
-    assert np.array_equal(lane, tb.lane)
+            packed[j, h * N:h * N + N, 128 * (2 * p + kb):128 * (2 * p + kb + 1)] = _read(
+                tile, kb * N * 128, N, 128)
+    want = np.zeros((8, P, R, 8, P, R), dtype=np.int8)
+    for p in range(P):
+        want[:, p, :, :, p, :] = tb.row.reshape(8, R, 8, R)
+    assert np.array_equal(packed, want.reshape(8, RK, 8 * RK))
+    for h in range(RK // N):
+        lane = np.empty_like(tb.lane)
+        for s, tile in enumerate(lanes[64 * h:64 * h + 64]):
+            j, kk = divmod(s, 8)
+            lane[j, 128 * kk:128 * (kk + 1), :] = _read(tile, 0, 128, 128).T
+        assert np.array_equal(lane, tb.lane)
 
 
-@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("n", RINGS)
 def test_splits_put_every_digit_at_one_swizzled_place(n):
-    """Each split writes every byte of its planes exactly once, and the
-    descriptors read back the operands the products need: the rows' A
-    (lane l, k = kk R + r) by k-block, the lanes' B (row r, k = kk 128 + l)."""
-    R = n // 128
-    words = np.random.default_rng(n).integers(0, 1 << 64, size=(R, 128), dtype=np.uint64)
+    """Each split of a CTA's RK rows of words writes every byte of its
+    planes exactly once, and the descriptors read back the operands the
+    products need: the rows' A (lane l, k = kk RK + r) by k-block, the
+    lanes' B (row r, k = kk 128 + l)."""
+    RK = ntt_mxu.geometry(n)[0]
+    words = np.random.default_rng(n).integers(0, 1 << 64, size=(RK, 128), dtype=np.uint64)
     words[0, :3] = (0, (1 << 63) - 1, (1 << 64) - 1)
     dig = _digits(words)
     planes, addr = _split_rows(words)
     assert np.array_equal(np.sort(addr.reshape(-1)), np.arange(planes.size))
-    sT = dig.transpose(2, 0, 1).reshape(128, 8 * R)  # S^T[l, kk R + r]
-    for kb in range(8 * R // 128):
+    sT = dig.transpose(2, 0, 1).reshape(128, 8 * RK)  # S^T[l, kk RK + r]
+    for kb in range(8 * RK // 128):
         assert np.array_equal(_read(planes, kb * KBLOCK, 128, 128), sT[:, 128 * kb:128 * kb + 128])
     planes, addr = _split_lanes(words)
     assert np.array_equal(np.sort(addr.reshape(-1)), np.arange(planes.size))
     for kk in range(8):
-        assert np.array_equal(_read(planes, kk * R * 128, R, 128), dig[kk])
+        assert np.array_equal(_read(planes, kk * RK * 128, RK, 128), dig[kk])
 
 
-def test_accumulator_fragments_cover_each_output_once():
+@pytest.mark.parametrize("n", RINGS)
+def test_accumulator_fragments_cover_each_output_once(n):
     """The epilogue's word of d[4 blk + 2h + e] (lane 4 gq + t of warp w in
-    warpgroup wg): lane m = 64 wg + 16 w + gq + 8h, row i = 8 blk + 2t + e;
-    the 256 threads cover the (128 x R) outputs once at R = 32 and 64."""
-    for R in (32, 64):
-        seen = set()
+    warpgroup wg) in column half hf: lane m = 64 wg + 16 w + gq + 8h, row i
+    = hf N + 8 blk + 2t + e; the 256 threads cover a CTA's (128 x RK)
+    outputs once."""
+    RK, _, N = ntt_mxu.geometry(n)
+    seen = set()
+    for hf in range(RK // N):
         for tid in range(256):
             wg, w, lane = tid // 128, (tid >> 5) & 3, tid & 31
-            for o in range(R // 2):
+            for o in range(N // 2):
                 m = 64 * wg + 16 * w + (lane >> 2) + 8 * ((o >> 1) & 1)
-                i = 8 * (o >> 2) + 2 * (lane & 3) + (o & 1)
+                i = hf * N + 8 * (o >> 2) + 2 * (lane & 3) + (o & 1)
                 assert (m, i) not in seen
                 seen.add((m, i))
-        assert len(seen) == 128 * R
+    assert len(seen) == 128 * RK
 
 
 def _tail(lo, hi, c, q):
@@ -323,52 +381,61 @@ def _finish(w, tw, tws, mid, fin, q):
 
 
 def _kernel_step(words, tb, stream, s, rows, mid, fin, q, epi="fold"):
-    """One product step as the kernel runs it: the split, the wgmma k32 steps
-    through the descriptors at the kernel's offsets (rows: A the planes'
-    k-block p KB + kb, B the slot's k-block kb; lanes: A the slot, B the
-    planes' k-block p), then the epilogue: "fold", fold59 a digit at a time
-    into (lo, hi), its tail, then finish; "xor", the parts probe's, x ^= e_j
-    as each digit completes and u32(x) | u32(x + 1 or x ^ 3) << 32.
-    Returns (words, next stage)."""
-    R = words.shape[0]
-    parts, kbs = (R // 32, 2) if rows else (8, 1)
-    b = ntt_mxu.bias_bits(8 * R if rows else 1024)
+    """One product step as the kernel runs it on a CTA's (RK, 128) words: the
+    split, then per column half h the wgmma k32 steps through the
+    descriptors at the kernel's offsets (rows: A the planes' k-block p KB +
+    kb, B the slot's k-block kb of N rows; lanes: A the slot, B the planes'
+    k-block p from row h N), then the epilogue into rows h N .. h N + N - 1:
+    "fold", fold59 a digit at a time into (lo, hi), its tail with the row
+    bias of tables_np's ring, then finish on kernel_constants' tw, tws and
+    crow; "xor", the parts probe's, x ^= e_j as each digit completes and
+    u32(x) | u32(x + 1 or x ^ 3) << 32.  Returns (words, next stage)."""
+    RK = words.shape[0]
+    N = min(RK, 64)
+    parts, kbs = (RK // 32, 2) if rows else (8, 1)
+    b = ntt_mxu.bias_bits(8 * tb.tw.shape[0] if rows else 1024)
+    tw, tws, crow = (a.reshape(RK, -1) for a in ntt_mxu.kernel_constants(tb))
     planes = (_split_rows if rows else _split_lanes)(words)[0]
-    lo = np.zeros((128, R), dtype=np.uint64)
-    hi = np.zeros((128, R), dtype=np.uint64)
-    x = np.zeros((128, R), dtype=np.uint64)
-    for j in range(8):
-        acc = np.zeros((128, R), dtype=np.int64)
-        for p in range(parts):
-            tile = stream[s % len(stream)]  # the stages repeat per transform
-            s += 1
-            for kb in range(kbs):
-                for kc in range(4):
-                    if rows:
-                        a = _read(planes, (p * kbs + kb) * KBLOCK + 32 * kc, 128)
-                        bt = _read(tile, kb * R * 128 + 32 * kc, R)
-                    else:
-                        a = _read(tile, 32 * kc, 128)
-                        bt = _read(planes, p * R * 128 + 32 * kc, R)
-                    acc += a @ bt.T
+    out = np.empty_like(words)
+    for h in range(RK // N):
+        lo = np.zeros((128, N), dtype=np.uint64)
+        hi = np.zeros((128, N), dtype=np.uint64)
+        x = np.zeros((128, N), dtype=np.uint64)
+        for j in range(8):
+            acc = np.zeros((128, N), dtype=np.int64)
+            for p in range(parts):
+                tile = stream[s % len(stream)]  # the stages repeat per transform
+                s += 1
+                for kb in range(kbs):
+                    for kc in range(4):
+                        if rows:
+                            a = _read(planes, (p * kbs + kb) * KBLOCK + 32 * kc, 128)
+                            bt = _read(tile, kb * N * 128 + 32 * kc, N)
+                        else:
+                            a = _read(tile, 32 * kc, 128)
+                            bt = _read(planes, p * RK * 128 + h * N * 128 + 32 * kc, N)
+                        acc += a @ bt.T
+            if epi == "xor":
+                x ^= (acc & 0xFFFFFFFF).astype(np.uint64)
+                continue
+            u = (acc + (1 << b)).astype(np.uint64)
+            if j < 5:
+                lo += u << np.uint64(8 * j)
+            else:
+                hi += u << np.uint64(8 * (j - 5))
+        half = slice(h * N, h * N + N)
         if epi == "xor":
-            x ^= (acc & 0xFFFFFFFF).astype(np.uint64)
+            top = (x + np.uint64(1)) & M32 if rows else x ^ np.uint64(3)
+            out[half] = (x | (top << np.uint64(32))).T
             continue
-        u = (acc + (1 << b)).astype(np.uint64)
-        if j < 5:
-            lo += u << np.uint64(8 * j)
-        else:
-            hi += u << np.uint64(8 * (j - 5))
-    if epi == "xor":
-        top = (x + np.uint64(1)) & M32 if rows else x ^ np.uint64(3)
-        return (x | (top << np.uint64(32))).T, s
-    c = (tb.crow[None, :] if rows else tb.ccol[:, None]).astype(np.uint64)
-    w = _tail(lo, hi, c, q).T  # word i 128 + m
-    return _finish(w, tb.tw, tb.tws, mid, fin, q), s
+        c = (crow[half, 0][None, :] if rows else tb.ccol[:, None]).astype(np.uint64)
+        w = _tail(lo, hi, c, q).T  # word (h N + i) 128 + m
+        out[half] = _finish(w, tw[half], tws[half], mid, fin, q)
+    return out, s
 
 
 def _kernel_model(words, tb, stream, q, k, inverse):
-    """The kernel's k transforms of one polynomial (R, 128) u64."""
+    """The kernel's k transforms of one CTA's words (RK, 128) u64."""
     s = 0
     for it in range(k):
         fin = it == k - 1
@@ -379,22 +446,40 @@ def _kernel_model(words, tb, stream, q, k, inverse):
     return words
 
 
+def _launch_model(x, tb, stream, q, k, inverse):
+    """The kernel's launch on x (nb, n) u64: CTA c takes polynomials c P ..
+    c P + P - 1 as its RK rows of words; the last CTA's missing ones are
+    zeros, and are not stored."""
+    nb, n = x.shape
+    RK, P, _ = ntt_mxu.geometry(n)
+    y = np.empty_like(x)
+    for c in range(0, nb, P):
+        cta = np.zeros((P, n), dtype=np.uint64)
+        cta[:nb - c] = x[c:c + P]
+        y[c:c + P] = _kernel_model(cta.reshape(RK, 128), tb, stream, q, k,
+                                   inverse).reshape(P, n)[:nb - c]
+    return y
+
+
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("n", RINGS)
 def test_kernel_model_equals_plain(n, inverse):
-    """A NumPy model of csrc/ntt_mxu.cu's data flow (splits, table stream,
-    descriptor offsets, the digit-at-a-time fold59, finish) gives the plain
-    version's words for k = 1 and 2, on the fold's range ends (0, q - 1,
-    2^63 - 1, 2^64 - 1) and random words."""
+    """A NumPy model of csrc/ntt_mxu.cu's launch (P polynomials a CTA, the
+    splits, table stream, descriptor offsets, column halves, the
+    digit-at-a-time fold59, finish) gives the plain version's words for k =
+    1 and 2 on 2P - 1 polynomials (the last CTA one short; one at P = 1),
+    on the fold's range ends (0, q - 1, 2^63 - 1, 2^64 - 1) and random
+    words."""
     q, root, tb = _ring(n, 0, inverse)
-    R = n // 128
+    P = ntt_mxu.geometry(n)[1]
+    nb = 2 * P - 1
     stream = ntt_mxu.table_stream(tb, inverse)
-    words = np.random.default_rng(n + inverse).integers(0, 1 << 63, size=(R, 128),
+    words = np.random.default_rng(n + inverse).integers(0, 1 << 63, size=(nb, n),
                                                         dtype=np.uint64)
     words[0, :4] = (0, q - 1, (1 << 63) - 1, (1 << 64) - 1)
-    x = torch.from_numpy(words.reshape(1, n).view(np.int64))
+    x = torch.from_numpy(words.view(np.int64))
     for k in (1, 2):
-        got = _kernel_model(words, tb, stream, q, k, inverse).reshape(1, n)
+        got = _launch_model(words, tb, stream, q, k, inverse)
         want = ntt_mxu.chain_plain(x, q, root, k, inverse)
         assert np.array_equal(got, cv.to_u64(want)), k
 

@@ -128,6 +128,47 @@ def test_library_is_named_by_the_sources():
                                       "aloha_probe_dma_stages"}
 
 
+def test_library_is_named_by_the_build_commands(monkeypatch):
+    """A changed nvcc command line (a flag of the compile or of the link)
+    names another library, so a build with other flags is never reused."""
+    path = _build.library_path()
+    compile_command, link_command = _build.compile_command, _build.link_command
+    monkeypatch.setattr(_build, "compile_command",
+                        lambda *a: compile_command(*a) + ["-maxrregcount=128"])
+    changed = _build.library_path()
+    assert changed != path and changed.parent == path.parent
+    monkeypatch.setattr(_build, "compile_command", compile_command)
+    assert _build.library_path() == path
+    monkeypatch.setattr(_build, "link_command", lambda *a: link_command(*a) + ["-lcuda"])
+    assert _build.library_path() not in (path, changed)
+
+
+def test_build_runs_the_hashed_commands(monkeypatch, tmp_path):
+    """build() runs compile_command per source, then link_command, and
+    moves the library and ptxas' log into place (a stand-in for nvcc
+    writes each -o file)."""
+    ran = []
+
+    def fake_run(cmds):
+        for cmd in cmds:
+            ran.append(cmd)
+            pathlib.Path(cmd[cmd.index("-o") + 1]).write_text("built")
+        return ["ptxas info\n"] * len(cmds)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "cuda_tool", lambda name="nvcc": "nvcc")
+    monkeypatch.setattr(_build, "_run_all", fake_run)
+    out = _build.build()
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    assert [c[:-1] for c in ran[:-1]] == [
+        _build.compile_command("nvcc", str(src), "OBJ")[:-1] for src in srcs]
+    assert ran[-1][:-len(srcs) - 1] == _build.link_command("nvcc", "LIB", [])[:-1]
+    assert ran[-1][-len(srcs):] == [c[-1] for c in ran[:-1]]
+    assert out == _build.library_path() and out.read_text() == "built"
+    assert _build.log_path().read_text() == "ptxas info\n" * (len(srcs) + 1)
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted([out.name, _build.log_path().name])
+
+
 def test_dispatch_routes_by_device():
     x = torch.zeros(3, dtype=torch.int64)
     assert dispatch.use_kernel(x) is False
@@ -188,7 +229,7 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
                                     "probe_mxu", "probe_mxu_parts", "probe_dynstage",
                                     "probe_dynsub", "dma_bisect", "dma_bisect_doublebuf",
                                     "dma_bisect_tblread", "dma_bisect_stages", "aut_timing",
-                                    "stage_modes_timing"])
+                                    "stage_modes_timing", "mxu_timing"])
 def test_probe_entry_points_refuse_to_run_without_cuda(module):
     """`python -m aloha_tpu_torch.probes.<module>` measures the card: with
     no CUDA it exits nonzero and prints no measurement (no CPU fallback)."""
