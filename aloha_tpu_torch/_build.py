@@ -23,6 +23,8 @@ import subprocess
 import sys
 import tempfile
 
+from aloha_tpu_torch.profiling import span
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 
@@ -154,8 +156,10 @@ def ptxas_usage(kernel: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
+@span("aloha.build.library")
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed (an
+    `aloha.build.library` span under a profiler)."""
     so = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(so, name)

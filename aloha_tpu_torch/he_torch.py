@@ -24,6 +24,9 @@ Words equal `aloha_tpu.he_np`'s: rotate/galois/conjugate and
 rotate_per_transform match he_np.rotate; the hoisted and batched forms and
 matvec_bsgs match he_np.rotate_hoisted / he_np.matvec_bsgs; ct_mul,
 relinearize and rescale match he_np's.
+
+Each op of the serving slice is an `aloha.he.<op>` span under a profiler
+(`profiling.span`), the stacks of its limbs `aloha.pack.*` spans.
 """
 
 from __future__ import annotations
@@ -36,10 +39,16 @@ from aloha_tpu_torch import encoder_torch, ntt_torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_pallas, ntt_stream
+from aloha_tpu_torch.profiling import span
+
+#: the layout copies: limbs stacked back into one tensor
+_stack_limbs = span("aloha.pack.per_limb")(torch.stack)
+_stack_scalar_limbs = span("aloha.pack.scalar_per_limb")(torch.stack)
+_stack_rescale = span("aloha.pack.rescale")(torch.stack)
 
 
 def _per_limb(op, x, y, cfg: HEConfig):
-    return torch.stack(
+    return _stack_limbs(
         [op(x[..., m, :], y[..., m, :], cfg.moduli[m]) for m in range(x.shape[-2])],
         dim=-2,
     )
@@ -47,7 +56,7 @@ def _per_limb(op, x, y, cfg: HEConfig):
 
 def _scalar_per_limb(op, x, values, moduli):
     """op(x[..., m, :], values[m]) under moduli[m], for each limb m."""
-    return torch.stack(
+    return _stack_scalar_limbs(
         [
             op(x[..., m, :], torch.full_like(x[..., m, :], v), q)
             for m, (v, q) in enumerate(zip(values, moduli))
@@ -56,29 +65,34 @@ def _scalar_per_limb(op, x, values, moduli):
     )
 
 
+@span("aloha.he.hom_add")
 def hom_add(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     """(a1 + a2, b1 + b2) limb-wise."""
     return (_per_limb(rt.addmod, ct1[0], ct2[0], cfg),
             _per_limb(rt.addmod, ct1[1], ct2[1], cfg))
 
 
+@span("aloha.he.hom_sub")
 def hom_sub(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     """(a1 - a2, b1 - b2) limb-wise."""
     return (_per_limb(rt.submod, ct1[0], ct2[0], cfg),
             _per_limb(rt.submod, ct1[1], ct2[1], cfg))
 
 
+@span("aloha.he.add_plain")
 def add_plain(ct, pt, cfg: HEConfig = DEFAULT_CONFIG):
     """ct + pt into the message part."""
     return (_per_limb(rt.addmod, ct[0], pt.expand_as(ct[0]), cfg), ct[1])
 
 
+@span("aloha.he.mul_plain")
 def mul_plain(ct, pt, cfg: HEConfig = DEFAULT_CONFIG):
     """(a pt, b pt) limb-wise pointwise (NTT domain)."""
     return (_per_limb(rt.mulmod, ct[0], pt.expand_as(ct[0]), cfg),
             _per_limb(rt.mulmod, ct[1], pt.expand_as(ct[1]), cfg))
 
 
+@span("aloha.he.encode_post")
 def encode_post(pt_coeff, cfg: HEConfig = DEFAULT_CONFIG):
     """Per-limb forward NTT of a coefficient-domain plaintext (..., L, N)."""
     L = cfg.n_limbs
@@ -101,16 +115,19 @@ def automorphism(x, step: int, q: int):
     return aut.automorphism(x, step, q)
 
 
+@span("aloha.he.galois")
 def galois(ct, step_exp: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
     """Galois automorphism X -> X^step_exp + hybrid key-switch (two launches)."""
     return ks_kernel.rotate_planes(ct[0], ct[1], step_exp, ksk, cfg)
 
 
+@span("aloha.he.rotate")
 def rotate(ct, step: int, ksk, cfg: HEConfig = DEFAULT_CONFIG):
     """Slot rotation by `step`: X -> X^(3^step) + key-switch."""
     return galois(ct, pow(3, step, 2 * cfg.n), ksk, cfg)
 
 
+@span("aloha.he.conjugate")
 def conjugate(ct, cjk, cfg: HEConfig = DEFAULT_CONFIG):
     """Slot conjugation: X -> X^(2N-1) + key-switch."""
     return galois(ct, 2 * cfg.n - 1, cjk, cfg)
@@ -193,12 +210,14 @@ def galois_hoisted(ct, step_exps, ksks, cfg: HEConfig = DEFAULT_CONFIG):
     return ks_kernel.rotate_planes_hoisted(ct[0], ct[1], list(step_exps), ksks, cfg)
 
 
+@span("aloha.he.rotate_hoisted")
 def rotate_hoisted(ct, steps, ksks, cfg: HEConfig = DEFAULT_CONFIG):
     """Rotate one ciphertext by several steps sharing one key-switch head.
     Returns a list of ciphertexts aligned with steps."""
     return galois_hoisted(ct, [pow(3, s, 2 * cfg.n) for s in steps], ksks, cfg)
 
 
+@span("aloha.he.rotate_batch")
 def rotate_batch(cts, steps, ksks, cfg: HEConfig = DEFAULT_CONFIG):
     """Rotate K different ciphertexts, each by its own step, in two launches."""
     return ks_kernel.rotate_planes_batch(
@@ -206,12 +225,14 @@ def rotate_batch(cts, steps, ksks, cfg: HEConfig = DEFAULT_CONFIG):
     )
 
 
+@span("aloha.he.pt_rotate")
 def pt_rotate(pt, r: int, cfg: HEConfig = DEFAULT_CONFIG):
     """Rotate an encoded (NTT-domain) plaintext by r slots: one gather."""
     n = pt.shape[-1]
     return ntt_torch.ntt_domain_aut(pt, pow(3, r % n, 2 * n))
 
 
+@span("aloha.he.matvec_bsgs")
 def matvec_bsgs(ct, diags, ksks_baby, ksks_giant,
                 cfg: HEConfig = DEFAULT_CONFIG, g: int | None = None):
     """Encrypted matrix-vector product by the diagonal method with
@@ -246,6 +267,7 @@ def matvec_bsgs(ct, diags, ksks_baby, ksks_giant,
     return acc
 
 
+@span("aloha.he.ct_mul")
 def ct_mul(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     """Ciphertext x ciphertext tensor product, limb by limb in the NTT
     domain: (d0, d1, d2) = (a1 a2, a1 b2 + b1 a2, b1 b2), decrypting as
@@ -256,6 +278,7 @@ def ct_mul(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     return _per_limb(rt.mulmod, a1, a2, cfg), d1, _per_limb(rt.mulmod, b1, b2, cfg)
 
 
+@span("aloha.he.relinearize")
 def relinearize(d0, d1, d2, rlk, cfg: HEConfig = DEFAULT_CONFIG):
     """Fold d2 s^2 back to degree 1 with the relinearization key: the
     key-switch pair on d2 as the b input with e = 1 (no automorphism) and a
@@ -264,6 +287,7 @@ def relinearize(d0, d1, d2, rlk, cfg: HEConfig = DEFAULT_CONFIG):
     return _per_limb(rt.addmod, d0, ka, cfg), _per_limb(rt.addmod, d1, kb, cfg)
 
 
+@span("aloha.he.rescale")
 def rescale(ct, cfg: HEConfig = DEFAULT_CONFIG):
     """Drop the last limb: c' = round(c / q_last) over the remaining
     limbs.  Returns a ciphertext of (..., L-1, N) tensors."""
@@ -276,7 +300,7 @@ def rescale(ct, cfg: HEConfig = DEFAULT_CONFIG):
     a, b = ct
     # centred lift of the last limb of both parts: one INTT launch
     last = ntt_stream.transform_limbs(
-        torch.stack([a[..., L - 1:, :], b[..., L - 1:, :]], dim=-3),
+        _stack_rescale([a[..., L - 1:, :], b[..., L - 1:, :]], dim=-3),
         (q_last,), (cfg.ipsi[L - 1],), True,
     )[..., 0, :]
     last = rt.addmod(last, torch.full_like(last, half), q_last)

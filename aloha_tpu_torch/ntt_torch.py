@@ -13,7 +13,9 @@ u64 bit pattern in int64).  Stage s of the forward transform reads entries
 per-element (logn, rows, 128) tables existed only for its (8, 128) layout.
 
 The functions here are the plain PyTorch forms; `ops.ntt_stream` puts the
-CUDA kernel beside them.
+CUDA kernel beside them.  Under a profiler (`profiling.span`) a table or
+gather map built anew is an `aloha.build.*` span, and an NTT-domain
+automorphism an `aloha.gather.ntt_domain_aut` span.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ import torch
 
 from aloha_tpu_torch import ntt_np
 from aloha_tpu_torch import rns_torch as rt
+from aloha_tpu_torch.profiling import span
 
 
 @functools.lru_cache(maxsize=None)
+@span("aloha.build.twiddles_np")
 def twiddles_np(n: int, root: int, q: int):
     """(w, wshoup) uint64 arrays of length n: root^bitrev(i) mod q and
     floor(w 2^64 / q)."""
@@ -37,6 +41,7 @@ def twiddles_np(n: int, root: int, q: int):
 
 
 @functools.lru_cache(maxsize=64)
+@span("aloha.build.tables")
 def tables(n: int, qs: tuple, roots: tuple, device: torch.device):
     """Stacked per-modulus tables on `device`: (w, wshoup) int64 (M, n)
     and the moduli q (M,) int64."""
@@ -153,6 +158,7 @@ def intt(a, q: int, ipsi: int):
 
 
 @functools.lru_cache(maxsize=64)
+@span("aloha.build.aut_maps")
 def _aut_maps(n: int, step: int, device: torch.device):
     """Gather index and sign mask of X -> X^step (coefficient domain):
     out[d] = sign[d] ? q - a[src[d]] : a[src[d]]."""
@@ -175,6 +181,7 @@ def automorphism(a, step: int, q: int):
 
 
 @functools.lru_cache(maxsize=256)
+@span("aloha.build.aut_perm")
 def aut_perm(n: int, e: int, device: torch.device):
     """NTT-domain automorphism X -> X^e as a gather index (ntt_np.ntt_aut_perm)."""
     return torch.from_numpy(ntt_np.ntt_aut_perm(n, e).astype(np.int64)).to(
@@ -182,6 +189,7 @@ def aut_perm(n: int, e: int, device: torch.device):
     )
 
 
+@span("aloha.gather.ntt_domain_aut")
 def ntt_domain_aut(x, e: int):
     """Apply X -> X^e to NTT-domain data (..., n): one gather.  Equal word
     for word to NTT(automorphism(INTT(x)))."""

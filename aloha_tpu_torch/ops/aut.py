@@ -22,6 +22,7 @@ import torch
 
 from aloha_tpu_torch import _build, ntt_torch
 from aloha_tpu_torch.ops import dispatch
+from aloha_tpu_torch.profiling import span
 
 MIN_N, MAX_N = 128, 8192
 
@@ -71,13 +72,17 @@ def automorphism(x, step: int, q: int):
     nb = src.shape[0]
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     if nb:
-        err = _build.lib().aloha_aut(
+        _launch(
             x.device.index, src.data_ptr(), y.data_ptr(), q, pow(step, -1, 2 * n), nb,
             n.bit_length() - 1, stride, dispatch.stream_of(x),
         )
-        _build.check(err, "aut")
-        automorphism.launches += 1
     return y
 
 
 automorphism.launches = 0
+
+
+@span("aloha.kernel.aut")
+def _launch(*args):
+    _build.check(_build.lib().aloha_aut(*args), "aut")
+    automorphism.launches += 1

@@ -25,6 +25,10 @@ transform only).
 Everything else here is plain PyTorch, as it was XLA around the Pallas
 kernels: key preparation, the NTT-domain automorphism gathers and the
 packing of hoisted and batched rotations (ks_kernel.py:615-909).
+
+Under a profiler (`profiling.span`) each launch is an `aloha.kernel.*`
+span, each packing copy an `aloha.pack.*` span, and each key prepared or
+constants formed anew an `aloha.build.*` span.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ from aloha_tpu_torch import _build, ntt_np, ntt_torch
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.config import HEConfig
 from aloha_tpu_torch.ops import dispatch
+from aloha_tpu_torch.profiling import span
 
 
 @functools.lru_cache(maxsize=16)
+@span("aloha.build.ks_consts")
 def _consts(cfg: HEConfig, device: torch.device):
     """Per-(cfg, device) kernel constants: forward and inverse tables of
     every modulus, Barrett reciprocals (u64 bit patterns) and P^-1 mod q_m."""
@@ -124,17 +130,21 @@ def ks_head(b, step_exp, cfg: HEConfig):
     out = torch.empty((L + 1, nb, L, n), dtype=torch.int64, device=b.device)
     if nb:
         e = 1 if step_exp is None else step_exp % (2 * n)
-        err = _build.lib().aloha_ks_head(
+        _launch_head(
             b.device.index, b.data_ptr(), out.data_ptr(), fw.data_ptr(),
             fws.data_ptr(), iw.data_ptr(), iws.data_ptr(), q.data_ptr(),
             L, nb, n.bit_length() - 1, e, dispatch.stream_of(b),
         )
-        _build.check(err, "ks_head")
-        ks_head.launches += 1
     return out
 
 
 ks_head.launches = 0
+
+
+@span("aloha.kernel.ks_head")
+def _launch_head(*args):
+    _build.check(_build.lib().aloha_ks_head(*args), "ks_head")
+    ks_head.launches += 1
 
 
 # ------------------------------------------------------------------ ks_tail
@@ -228,15 +238,20 @@ def ks_tail(nd, rider, key, cfg: HEConfig, kshoup=None,
             iws.data_ptr(), q.data_ptr(), iq.data_ptr(), pinv.data_ptr(),
             L, nb_in, nb_out, nper, n.bit_length() - 1, cfg.mod_width,
         )
-        lib = _build.lib()
-        err = (lib.aloha_ks_tail_c(*args, cluster, dispatch.stream_of(nd)) if cluster
-               else lib.aloha_ks_tail(*args, dispatch.stream_of(nd)))
-        _build.check(err, "ks_tail")
-        ks_tail.launches += 1
+        _launch_tail(args, cluster, dispatch.stream_of(nd))
     return out
 
 
 ks_tail.launches = 0
+
+
+@span("aloha.kernel.ks_tail")
+def _launch_tail(args, cluster: int, stream: int):
+    lib = _build.lib()
+    err = (lib.aloha_ks_tail_c(*args, cluster, stream) if cluster
+           else lib.aloha_ks_tail(*args, stream))
+    _build.check(err, "ks_tail")
+    ks_tail.launches += 1
 
 
 # --------------------------------------------------------- key preparation
@@ -263,6 +278,16 @@ def prepare_ksk(ksk, cfg: HEConfig, aut_exp: int | None = None):
     if hit is not None and hit[0] is ksk:
         _KSK_CACHE.move_to_end(ck)
         return hit[1]
+    out = _prepared(ksk, cfg, aut_exp)
+    while len(_KSK_CACHE) >= _KSK_CACHE_CAP:
+        _KSK_CACHE.popitem(last=False)
+    _KSK_CACHE[ck] = (ksk, out)
+    return out
+
+
+@span("aloha.build.prepare_ksk")
+def _prepared(ksk, cfg: HEConfig, aut_exp):
+    """`prepare_ksk`'s (k, kshoup), formed anew."""
     L, n = cfg.n_limbs, cfg.n
     k64 = ksk.detach().cpu().numpy().view(np.uint64).reshape(2 * L * (L + 1), n)
     if aut_exp is not None:
@@ -272,16 +297,13 @@ def prepare_ksk(ksk, cfg: HEConfig, aut_exp: int | None = None):
     for p in range(k64.shape[0]):
         q = cfg.moduli[p // (2 * L)]
         s[p] = ((k64[p].astype(object) << 64) // q).astype(np.uint64)
-    out = (
+    return (
         torch.from_numpy(k64.view(np.int64)).to(ksk.device),
         torch.from_numpy(s.view(np.int64)).to(ksk.device),
     )
-    while len(_KSK_CACHE) >= _KSK_CACHE_CAP:
-        _KSK_CACHE.popitem(last=False)
-    _KSK_CACHE[ck] = (ksk, out)
-    return out
 
 
+@span("aloha.pack.stacked_keys")
 def _stacked_keys(ksks, cfg: HEConfig, aut_exps):
     """Stack K prepared keys into the batched-tail layout (K, 2L(L+1), N)."""
     preps = [prepare_ksk(k, cfg, aut_exp=e) for k, e in zip(ksks, aut_exps)]
@@ -292,6 +314,11 @@ def _stacked_keys(ksks, cfg: HEConfig, aut_exps):
 
 
 # ---------------------------------------------------------------- rotations
+#: the K ciphertexts of a batched rotation stacked key-major
+_stack_cts = span("aloha.pack.batch_stack")(torch.stack)
+
+
+@span("aloha.pack.ks_pack")
 def _pack(x, L: int, n: int):
     """(..., L, N) -> (L, nb, N) contiguous."""
     return x.reshape(-1, L, n).transpose(0, 1).contiguous()
@@ -368,7 +395,7 @@ def rotate_planes_batch(cts, step_exps, ksks, cfg: HEConfig):
     nb = math.prod(batch)
 
     def pack_k(parts):
-        return _pack(torch.stack([p.reshape(nb, L, n) for p in parts]), L, n)
+        return _pack(_stack_cts([p.reshape(nb, L, n) for p in parts]), L, n)
 
     k, ks = _stacked_keys(ksks, cfg, list(step_exps))
     nd = ks_head(pack_k([ct[1] for ct in cts]), None, cfg)

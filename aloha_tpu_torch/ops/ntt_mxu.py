@@ -66,6 +66,7 @@ import torch
 from aloha_tpu_torch import _build, ntt_np
 from aloha_tpu_torch import rns_torch as rt
 from aloha_tpu_torch.ops import dispatch
+from aloha_tpu_torch.profiling import span
 
 LANES = 128
 NDIG = 8  # base-256 digits of a u64
@@ -290,6 +291,7 @@ def kernel_constants(tb: Tables):
 
 
 @functools.lru_cache(maxsize=16)
+@span("aloha.build.mxu_tables")
 def kernel_tables(n: int, qs: tuple, roots: tuple, inverse: bool, device: torch.device):
     """Stacked per-modulus kernel operands on `device`: the table stream
     (M, stages x TILE) int8, tw, tws (M, RK 128), crow (M, RK), ccol (M,
@@ -376,8 +378,8 @@ def chain_plain(x, q: int, root: int, k: int, inverse: bool):
 
 
 # ------------------------------------------------------------ the wrappers
-def _launch(x, qs, roots, inverse: bool, k: int, wrapper):
-    """Launch the kernel on x (M, nb, n); count the launch on `wrapper`."""
+def _launch(x, qs, roots, inverse: bool, k: int, call):
+    """Launch the kernel on x (M, nb, n) by `call`, which counts it."""
     M, nb, n = x.shape
     dispatch.check(x, (M, nb, n), "x")
     if n not in KERNEL_RINGS:
@@ -385,15 +387,25 @@ def _launch(x, qs, roots, inverse: bool, k: int, wrapper):
     stream, tw, tws, crow, ccol, qt = kernel_tables(n, qs, roots, inverse, x.device)
     y = torch.empty_like(x)
     if nb:
-        err = _build.lib().aloha_ntt_mxu(
+        call(
             x.device.index, x.data_ptr(), y.data_ptr(), stream.data_ptr(),
             tw.data_ptr(), tws.data_ptr(), crow.data_ptr(), ccol.data_ptr(),
             qt.data_ptr(), M, nb, n.bit_length() - 1, k, int(inverse),
             dispatch.stream_of(x),
         )
-        _build.check(err, "ntt_mxu")
-        wrapper.launches += 1
     return y
+
+
+@span("aloha.kernel.ntt_mxu")
+def _launch_transform(*args):
+    _build.check(_build.lib().aloha_ntt_mxu(*args), "ntt_mxu")
+    transform.launches += 1
+
+
+@span("aloha.kernel.ntt_mxu_chain")
+def _launch_chain(*args):
+    _build.check(_build.lib().aloha_ntt_mxu(*args), "ntt_mxu")
+    chain.launches += 1
 
 
 def transform(x, qs, roots, inverse: bool):
@@ -408,7 +420,7 @@ def transform(x, qs, roots, inverse: bool):
         raise ValueError(f"{M} groups but {len(qs)} moduli, {len(roots)} roots")
     if not dispatch.use_kernel(x):
         return transform_plain(x, qs, roots, inverse)
-    return _launch(x, qs, roots, inverse, 1, transform)
+    return _launch(x, qs, roots, inverse, 1, _launch_transform)
 
 
 def chain(x, q: int, root: int, k: int, inverse: bool):
@@ -421,7 +433,7 @@ def chain(x, q: int, root: int, k: int, inverse: bool):
         raise ValueError(f"chain length {k}: at least 1 required")
     if not dispatch.use_kernel(x):
         return chain_plain(x, q, root, k, inverse)
-    return _launch(x[None], (q,), (root,), inverse, k, chain)[0]
+    return _launch(x[None], (q,), (root,), inverse, k, _launch_chain)[0]
 
 
 transform.launches = 0

@@ -32,11 +32,22 @@ import torch
 
 from aloha_tpu_torch import _build, ntt_torch
 from aloha_tpu_torch.ops import dispatch
+from aloha_tpu_torch.profiling import span
+
+
+def _call(name: str, *args) -> None:
+    _build.check(_build.lib().aloha_ntt(*args), name)
+
+
+#: one launch of csrc/ntt.cu under each wrapper's name, in its `aloha.kernel.*` span
+_CALLS = {name: span(f"aloha.kernel.{name}")(_call)
+          for name in ("ntt", "ntt_with_tables", "ntt_grid")}
 
 
 def _launch(x, w, ws, q, inverse: bool, name: str, cluster: int = 0):
     """One launch of csrc/ntt.cu on x (M, nb, n), group m with tables
     w[m], ws[m] (n,) under modulus q[m]: (output, whether it launched).
+    The launch is an `aloha.kernel.<name>` span under a profiler.
     cluster 0 lets the kernel choose how many CTAs share a polynomial
     (`cluster_size`); 1, 2 or 4 forces it (the card tests and
     chip_smoke.py's timing; no caller on the main path)."""
@@ -45,12 +56,11 @@ def _launch(x, w, ws, q, inverse: bool, name: str, cluster: int = 0):
         raise ValueError(f"length {n}: a power of two up to 16384 required")
     y = torch.empty_like(x)
     if nb:
-        err = _build.lib().aloha_ntt(
-            x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+        _CALLS[name](
+            name, x.device.index, x.data_ptr(), y.data_ptr(), w.data_ptr(),
             ws.data_ptr(), q.data_ptr(), M, nb, n.bit_length() - 1,
             int(inverse), cluster, dispatch.stream_of(x),
         )
-        _build.check(err, name)
     return y, bool(nb)
 
 
@@ -113,6 +123,7 @@ def transform_limbs(x, moduli, roots, inverse: bool):
 
 
 @functools.lru_cache(maxsize=64)
+@span("aloha.build.modulus")
 def _modulus(q: int, device: torch.device):
     return torch.tensor([q], dtype=torch.int64, device=device)
 

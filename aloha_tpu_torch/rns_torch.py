@@ -16,6 +16,10 @@ NumPy oracle's word for every uint64 word, as the ISA's DMA can deliver
 them: compares are unsigned on the int64 bit view (`uge`), adds and
 subtracts wrap mod 2^64 as NumPy's do, and the Barrett chain keeps the
 RTL's 64-bit wires.
+
+The ALU entry points (`addmod`, `submod`, `mulmod`, `modred`,
+`mulmod_shoup`, `halfmod`) are `aloha.rns.*` spans under a profiler
+(`profiling.span`); the helpers they call inside this module open none.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from aloha_tpu_torch.config import MOD_WIDTH, barrett_iq
+from aloha_tpu_torch.profiling import span
 
 _B = 30
 _M = (1 << _B) - 1
@@ -92,6 +97,7 @@ def lazy_reduce(a, q: int):
     return torch.where(uge(a, q), a - q, a)
 
 
+@span("aloha.rns.addmod")
 def addmod(a, b, q: int):
     """(a + b) mod q after the ALU's input laziness; inputs < 2q.  Any
     other uint64 words give rns_np.addmod's word (the sum wraps)."""
@@ -99,6 +105,7 @@ def addmod(a, b, q: int):
     return torch.where(uge(s, q), s - q, s)
 
 
+@span("aloha.rns.submod")
 def submod(a, b, q: int):
     """(a - b) mod q after the ALU's input laziness; inputs < 2q.  Any
     other uint64 words give rns_np.submod's word (the difference wraps)."""
@@ -107,6 +114,7 @@ def submod(a, b, q: int):
     return torch.where(uge(a, b), a - b, q + a - b)
 
 
+@span("aloha.rns.halfmod")
 def halfmod(a, q: int):
     """a/2 mod q: (a >> 1) + (a odd ? (q+1)/2 : 0) (halfred.sv:21-27)."""
     return (a >> 1) + torch.where((a & 1) == 1, (q + 1) >> 1, 0)
@@ -133,17 +141,20 @@ def barrett(a, b, q: int, w: int = MOD_WIDTH):
     return torch.where(diff >= q, diff - q, diff)
 
 
+@span("aloha.rns.mulmod")
 def mulmod(a, b, q: int, w: int = MOD_WIDTH):
     """Exact a*b mod q for inputs < 2q: lazy reduce, then Barrett (the
     oracle's word for any uint64 inputs)."""
     return barrett(lazy_reduce(a, q), lazy_reduce(b, q), q, w)
 
 
+@span("aloha.rns.modred")
 def modred(a, q: int):
     """`vfqmod`: lazy reduce, then Barrett-multiply by 1; exact for a < 2q."""
     return barrett(lazy_reduce(a, q), torch.ones_like(a), q)
 
 
+@span("aloha.rns.mulmod_shoup")
 def mulmod_shoup(x, w, wshoup, q: int):
     """Shoup multiply x*w mod q, output in [0, 2q) (rns_jax.mulmod_shoup64).
 

@@ -287,15 +287,21 @@ def test_profiler_records_launches_and_exports_a_trace(tmp_path):
         assert none is None
 
 
-def test_trace_device_events_counts_the_cards_work(tmp_path):
-    """The busy time of a trace is the sum of its kernels, copies and fills;
-    host events do not count (a CPU trace has none of the card's)."""
-    events = [{"cat": "kernel", "dur": 2.5}, {"cat": "gpu_memcpy", "dur": 1.0},
-              {"cat": "gpu_memset", "dur": 0.5}, {"cat": "cpu_op", "dur": 100.0},
-              {"cat": "cuda_runtime", "dur": 7.0}, {"ph": "M"}]
+@pytest.mark.parametrize("starts, busy", [((0.0, 10.0, 20.0), 4.0), ((0.0, 1.5, 2.0), 2.5)],
+                         ids=["apart", "overlapping"])
+def test_trace_device_events_counts_the_cards_work(tmp_path, starts, busy):
+    """The busy time of a trace is the union of the intervals of its
+    kernels, copies and fills: apart they add, overlapping (a copy beside a
+    kernel, [0, 2.5) with [1.5, 2.5) and [2, 2.5)) they count once; host
+    events do not count (a CPU trace has none of the card's)."""
+    events = [{"cat": "kernel", "ts": starts[0], "dur": 2.5},
+              {"cat": "gpu_memcpy", "ts": starts[1], "dur": 1.0},
+              {"cat": "gpu_memset", "ts": starts[2], "dur": 0.5},
+              {"cat": "cpu_op", "ts": 0.0, "dur": 100.0},
+              {"cat": "cuda_runtime", "ts": 0.0, "dur": 7.0}, {"ph": "M"}]
     path = tmp_path / "t.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    assert profiling.trace_device_events(path) == (3, 4.0)
+    assert profiling.trace_device_events(path) == (3, busy)
     prof = profiling.Profiler(trace_dir=str(tmp_path))
     with prof.device_trace("cpu"):
         torch.ones(64).sum()
