@@ -43,6 +43,7 @@ SIGNATURES = {
     "aloha_ks_cluster": [_I] * 3,
     "aloha_ntt_mxu": [_I] + [_P] * 8 + [_I] * 5 + [_P],
     "aloha_aut": [_I] + [_P] * 2 + [_U] + [_I] * 3 + [_L, _P],
+    "aloha_rns": [_I] * 3 + [_P] * 2,
     "aloha_probe_ops": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_stage_modes": [_I] + [_P] * 4 + [_U] + [_I] * 3 + [_P],
     "aloha_probe_lane_stages": [_I] + [_P] * 4 + [_U] + [_I] * 4 + [_P],

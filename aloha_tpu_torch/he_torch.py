@@ -5,9 +5,10 @@ canonical residues in the NTT domain, bit-reversed order (he_np's data
 model; decrypt = a + b*s).  A plaintext is ``(..., L, N)`` in the same
 domain, a key-switch key ``(2L(L+1), N)`` in the reference's KSK layout.
 Every op runs where its inputs lie: the transforms and the key-switch go
-through `ops/` (CUDA kernels on the card, plain PyTorch on the CPU), and
-the elementwise ops and gathers are plain PyTorch, as they were XLA
-outside the Pallas kernels.
+through `ops/` (CUDA kernels on the card, plain PyTorch on the CPU), the
+elementwise stages through `rns_torch` (on the card one launch of
+`csrc/rns.cu` a stage over every limb, on the CPU a call a limb), and the
+gathers are plain PyTorch, as they were XLA outside the Pallas kernels.
 
 Which JAX function each op ports:
 - `he_planes` (fused launches): hom_add, hom_sub, add_plain, mul_plain,
@@ -26,7 +27,7 @@ matvec_bsgs match he_np.rotate_hoisted / he_np.matvec_bsgs; ct_mul,
 relinearize and rescale match he_np's.
 
 Each op of the serving slice is an `aloha.he.<op>` span under a profiler
-(`profiling.span`), the stacks of its limbs `aloha.pack.*` spans.
+(`profiling.span`), its layout copies `aloha.pack.*` spans.
 """
 
 from __future__ import annotations
@@ -41,55 +42,40 @@ from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
 from aloha_tpu_torch.ops import aut, ks_kernel, ntt_pallas, ntt_stream
 from aloha_tpu_torch.profiling import span
 
-#: the layout copies: limbs stacked back into one tensor
-_stack_limbs = span("aloha.pack.per_limb")(torch.stack)
-_stack_scalar_limbs = span("aloha.pack.scalar_per_limb")(torch.stack)
+#: the layout copy of the rescale: both parts' last limbs stacked
 _stack_rescale = span("aloha.pack.rescale")(torch.stack)
 
 
-def _per_limb(op, x, y, cfg: HEConfig):
-    return _stack_limbs(
-        [op(x[..., m, :], y[..., m, :], cfg.moduli[m]) for m in range(x.shape[-2])],
-        dim=-2,
-    )
-
-
-def _scalar_per_limb(op, x, values, moduli):
-    """op(x[..., m, :], values[m]) under moduli[m], for each limb m."""
-    return _stack_scalar_limbs(
-        [
-            op(x[..., m, :], torch.full_like(x[..., m, :], v), q)
-            for m, (v, q) in enumerate(zip(values, moduli))
-        ],
-        dim=-2,
-    )
+def _moduli(cfg: HEConfig, x) -> tuple:
+    """The moduli of the limbs of x (..., L, N)."""
+    return cfg.moduli[: x.shape[-2]]
 
 
 @span("aloha.he.hom_add")
 def hom_add(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     """(a1 + a2, b1 + b2) limb-wise."""
-    return (_per_limb(rt.addmod, ct1[0], ct2[0], cfg),
-            _per_limb(rt.addmod, ct1[1], ct2[1], cfg))
+    return (rt.addmod(ct1[0], ct2[0], _moduli(cfg, ct1[0])),
+            rt.addmod(ct1[1], ct2[1], _moduli(cfg, ct1[1])))
 
 
 @span("aloha.he.hom_sub")
 def hom_sub(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     """(a1 - a2, b1 - b2) limb-wise."""
-    return (_per_limb(rt.submod, ct1[0], ct2[0], cfg),
-            _per_limb(rt.submod, ct1[1], ct2[1], cfg))
+    return (rt.submod(ct1[0], ct2[0], _moduli(cfg, ct1[0])),
+            rt.submod(ct1[1], ct2[1], _moduli(cfg, ct1[1])))
 
 
 @span("aloha.he.add_plain")
 def add_plain(ct, pt, cfg: HEConfig = DEFAULT_CONFIG):
     """ct + pt into the message part."""
-    return (_per_limb(rt.addmod, ct[0], pt.expand_as(ct[0]), cfg), ct[1])
+    return (rt.addmod(ct[0], pt.expand_as(ct[0]), _moduli(cfg, ct[0])), ct[1])
 
 
 @span("aloha.he.mul_plain")
 def mul_plain(ct, pt, cfg: HEConfig = DEFAULT_CONFIG):
     """(a pt, b pt) limb-wise pointwise (NTT domain)."""
-    return (_per_limb(rt.mulmod, ct[0], pt.expand_as(ct[0]), cfg),
-            _per_limb(rt.mulmod, ct[1], pt.expand_as(ct[1]), cfg))
+    return (rt.mulmod(ct[0], pt.expand_as(ct[0]), _moduli(cfg, ct[0])),
+            rt.mulmod(ct[1], pt.expand_as(ct[1]), _moduli(cfg, ct[1])))
 
 
 @span("aloha.he.encode_post")
@@ -273,9 +259,9 @@ def ct_mul(ct1, ct2, cfg: HEConfig = DEFAULT_CONFIG):
     domain: (d0, d1, d2) = (a1 a2, a1 b2 + b1 a2, b1 b2), decrypting as
     d0 + d1 s + d2 s^2 (he_planes.ct_mul)."""
     (a1, b1), (a2, b2) = ct1, ct2
-    d1 = _per_limb(rt.addmod, _per_limb(rt.mulmod, a1, b2, cfg),
-                   _per_limb(rt.mulmod, b1, a2, cfg), cfg)
-    return _per_limb(rt.mulmod, a1, a2, cfg), d1, _per_limb(rt.mulmod, b1, b2, cfg)
+    moduli = _moduli(cfg, a1)
+    d1 = rt.addmod(rt.mulmod(a1, b2, moduli), rt.mulmod(b1, a2, moduli), moduli)
+    return rt.mulmod(a1, a2, moduli), d1, rt.mulmod(b1, b2, moduli)
 
 
 @span("aloha.he.relinearize")
@@ -284,7 +270,7 @@ def relinearize(d0, d1, d2, rlk, cfg: HEConfig = DEFAULT_CONFIG):
     key-switch pair on d2 as the b input with e = 1 (no automorphism) and a
     zero rider, added into (d0, d1) (he_planes.relinearize, :558-565)."""
     ka, kb = ks_kernel.rotate_planes(torch.zeros_like(d2), d2, 1, rlk, cfg)
-    return _per_limb(rt.addmod, d0, ka, cfg), _per_limb(rt.addmod, d1, kb, cfg)
+    return rt.addmod(d0, ka, _moduli(cfg, d0)), rt.addmod(d1, kb, _moduli(cfg, d1))
 
 
 @span("aloha.he.rescale")
@@ -303,23 +289,16 @@ def rescale(ct, cfg: HEConfig = DEFAULT_CONFIG):
         _stack_rescale([a[..., L - 1:, :], b[..., L - 1:, :]], dim=-3),
         (q_last,), (cfg.ipsi[L - 1],), True,
     )[..., 0, :]
-    last = rt.addmod(last, torch.full_like(last, half), q_last)
+    last = rt.addmod(last[..., None, :], (half,), (q_last,))[..., 0, :]
     # correction NTTs of both parts across the remaining limbs: one launch
     # over the stacked (..., 2, L-1, N) group
     corr = ntt_stream.transform_limbs(
-        _scalar_per_limb(
-            rt.submod,
-            last[..., :, None, :].expand(last.shape[:-1] + (L - 1, last.shape[-1])),
-            [half] * (L - 1), moduli,
-        ),
+        rt.submod(last[..., :, None, :].expand(last.shape[:-1] + (L - 1, last.shape[-1])),
+                  (half,) * (L - 1), moduli),
         moduli, cfg.psi[: L - 1], False,
     )
-    inv = [pow(q_last, -1, q) for q in moduli]
+    inv = tuple(pow(q_last, -1, q) for q in moduli)
     return tuple(
-        _scalar_per_limb(
-            rt.mulmod,
-            _per_limb(rt.submod, src[..., : L - 1, :], corr[..., p, :, :], cfg),
-            inv, moduli,
-        )
+        rt.mulmod(rt.submod(src[..., : L - 1, :], corr[..., p, :, :], moduli), inv, moduli)
         for p, src in enumerate((a, b))
     )

@@ -13,7 +13,9 @@ u64 bit pattern in int64).  Stage s of the forward transform reads entries
 per-element (logn, rows, 128) tables existed only for its (8, 128) layout.
 
 The functions here are the plain PyTorch forms; `ops.ntt_stream` puts the
-CUDA kernel beside them.  Under a profiler (`profiling.span`) a table or
+CUDA kernel beside them.  Their butterflies take `rns_torch.plain`, aten
+code on either device, so a transform here on the card never reaches
+`csrc/rns.cu`.  Under a profiler (`profiling.span`) a table or
 gather map built anew is an `aloha.build.*` span, and an NTT-domain
 automorphism an `aloha.gather.ntt_domain_aut` span.
 """
@@ -105,14 +107,14 @@ def ntt_with_tables(a, w, ws, q: int):
         t //= 2
         v = a.reshape(batch + (m, 2, t))
         u = v[..., 0, :]
-        x = rt.lazy_reduce(
-            rt.mulmod_shoup(
+        x = rt.plain.lazy_reduce(
+            rt.plain.mulmod_shoup(
                 v[..., 1, :], w[m:2 * m, None], ws[m:2 * m, None], q
             ),
             q,
         )
         a = torch.stack(
-            [rt.addmod(u, x, q), rt.submod(u, x, q)], dim=-2
+            [rt.plain.addmod(u, x, q), rt.plain.submod(u, x, q)], dim=-2
         ).reshape(batch + (n,))
         m *= 2
     return a
@@ -124,17 +126,17 @@ def intt_with_tables(a, w, ws, q: int):
     Input entries < 2q."""
     n = a.shape[-1]
     batch = a.shape[:-1]
-    a = rt.lazy_reduce(a, q)
+    a = rt.plain.lazy_reduce(a, q)
     t, m = 1, n
     while m > 1:
         h = m // 2
         v = a.reshape(batch + (h, 2, t))
         u, x = v[..., 0, :], v[..., 1, :]
-        s0 = rt.halfmod(rt.addmod(u, x, q), q)
-        d = rt.submod(u, x, q)
-        s1 = rt.halfmod(
-            rt.lazy_reduce(
-                rt.mulmod_shoup(d, w[h:2 * h, None], ws[h:2 * h, None], q), q
+        s0 = rt.plain.halfmod(rt.plain.addmod(u, x, q), q)
+        d = rt.plain.submod(u, x, q)
+        s1 = rt.plain.halfmod(
+            rt.plain.lazy_reduce(
+                rt.plain.mulmod_shoup(d, w[h:2 * h, None], ws[h:2 * h, None], q), q
             ),
             q,
         )

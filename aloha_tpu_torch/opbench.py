@@ -91,7 +91,7 @@ from aloha_tpu_torch import bench, client, encoder, keys, profiling
 from aloha_tpu_torch import convert as cv
 from aloha_tpu_torch import he_torch as ht
 from aloha_tpu_torch.config import DEFAULT_CONFIG, NUM_LANES, HEConfig
-from aloha_tpu_torch.ops import aut, ks_kernel, ntt_pallas, ntt_stream
+from aloha_tpu_torch.ops import aut, ks_kernel, ntt_pallas, ntt_stream, rns_kernel
 
 ROWS = ("hom_add", "mul_plain", "ct_mul_like", "rotate", "matvec_step", "encode_post",
         "rotate_hoisted", "matvec_bsgs", "multiply", "encode", "isa_oplist", "end_to_end")
@@ -109,7 +109,7 @@ SEED = 0
 #: the wrappers whose `.launches` count kernel launches
 COUNTERS = {"ntt": ntt_stream.transform, "ntt_grid": ntt_pallas.transform,
             "ks_head": ks_kernel.ks_head, "ks_tail": ks_kernel.ks_tail,
-            "aut": aut.automorphism}
+            "aut": aut.automorphism, "rns": rns_kernel.elementwise}
 UNITS = {
     "hom_add": "ops/s/card", "mul_plain": "ops/s/card", "ct_mul_like": "ops/s/card",
     "rotate": "rotations/s/card", "matvec_step": "ops/s/card", "encode_post": "ops/s/card",

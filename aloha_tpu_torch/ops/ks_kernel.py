@@ -106,8 +106,8 @@ def ks_head_plain(b, step_exp, cfg: HEConfig):
         q = moduli[mm]
         raised = [
             d if mm == j
-            else rt.lazy_reduce(d, q) if q > moduli[j]
-            else rt.modred(d, q)
+            else rt.plain.lazy_reduce(d, q) if q > moduli[j]
+            else rt.plain.modred(d, q)
             for j, d in enumerate(digits)
         ]
         out.append(ntt_torch.ntt(torch.stack(raised, dim=1), q, cfg.psi[mm]))
@@ -172,10 +172,10 @@ def ks_tail_plain(nd, rider, key, cfg: HEConfig, shared_inputs: bool = False):
 
     def inner(m, part):
         q = moduli[m]
-        acc = rt.mulmod(g[m, :, 0], k[:, stride * m + part], q)
+        acc = rt.plain.mulmod(g[m, :, 0], k[:, stride * m + part], q)
         for j in range(1, L):
-            acc = rt.addmod(
-                acc, rt.mulmod(g[m, :, j], k[:, stride * m + 2 * j + part], q), q
+            acc = rt.plain.addmod(
+                acc, rt.plain.mulmod(g[m, :, j], k[:, stride * m + 2 * j + part], q), q
             )
         return acc
 
@@ -183,19 +183,19 @@ def ks_tail_plain(nd, rider, key, cfg: HEConfig, shared_inputs: bool = False):
     sp = cfg.special_prime
     half = (sp - 1) // 2
     pc = ntt_torch.intt(torch.stack(ip[L], dim=1), sp, cfg.ipsi[-1])
-    m_coeff = rt.addmod(pc, torch.full_like(pc, half), sp)
+    m_coeff = rt.plain.addmod(pc, torch.full_like(pc, half), sp)
     outs = []
     for m in range(L):
         q = moduli[m]
         corr = ntt_torch.ntt(
-            rt.submod(m_coeff, torch.full_like(m_coeff, half), q), q, cfg.psi[m]
+            rt.plain.submod(m_coeff, torch.full_like(m_coeff, half), q), q, cfg.psi[m]
         )
         parts = []
         for part in (0, 1):
-            t = rt.submod(ip[m][part], corr[:, part], q)
-            v = rt.mulmod(t, torch.full_like(t, cfg.pinv_mod(m)), q)
+            t = rt.plain.submod(ip[m][part], corr[:, part], q)
+            v = rt.plain.mulmod(t, torch.full_like(t, cfg.pinv_mod(m)), q)
             if part == 0:
-                v = rt.addmod(r[m], v, q)
+                v = rt.plain.addmod(r[m], v, q)
             parts.append(v)
         outs.append(torch.stack(parts, dim=1))
     return torch.stack(outs)

@@ -322,7 +322,7 @@ def _reduce(e, b: int, c, q: int):
     u = e.to(torch.int64) + (1 << b)  # in [0, 2^(b+1)], below q
     acc = c.expand(u.shape[1:])
     for j in range(NDIG):
-        acc = rt.addmod(acc, rt.barrett(u[j], pow(2, 8 * j, q), q), q)
+        acc = rt.plain.addmod(acc, rt.barrett(u[j], pow(2, 8 * j, q), q), q)
     return acc
 
 
@@ -358,7 +358,7 @@ def _transform1(x, q: int, root: int, inverse: bool):
     nb, n = x.shape
     tb = plain_tables(n, q, int(root), inverse, x.device)
     first, second = (_lane_step, _row_step) if inverse else (_row_step, _lane_step)
-    v = rt.mulmod(first(x.reshape(nb, n // LANES, LANES), tb, q), tb.tw, q)
+    v = rt.plain.mulmod(first(x.reshape(nb, n // LANES, LANES), tb, q), tb.tw, q)
     return second(v, tb, q).reshape(nb, n)
 
 

@@ -24,8 +24,9 @@ batch instead (`batch_marginal`, t(nb_hi) - t(nb_lo) over nb_hi - nb_lo),
 which cancels the launch's cost the same way.
 
 The plain versions' 64-bit products go through `rns_torch`'s 30-bit limbs
-(`mul_lo64`, `mul_hi64`, `mulmod_shoup`, whose operands stay below 4q
-here); a conditional subtract is `rns_torch.lazy_reduce`; adds, subtracts
+(`mul_lo64`, `mul_hi64`, `plain.mulmod_shoup`, whose operands stay below 4q
+here); a conditional subtract is `rns_torch.plain.lazy_reduce` (aten code
+on the card, not `csrc/rns.cu`); adds, subtracts
 and shifts wrap mod 2^64 as the kernels' u64 arithmetic does.
 """
 

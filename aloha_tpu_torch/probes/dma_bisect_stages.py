@@ -80,7 +80,7 @@ def stages_plain(x, nstages: int):
         sh = C.LOGN - 1 - s  # log2 of the distance t
         u, v = C.pairs(x, sh)
         w, ws = (C.pairs(tb[None], sh)[0] for tb in C.twiddle_row(s, x.device))
-        up = rt.lazy_reduce(u, 2 * q)
+        up = rt.plain.lazy_reduce(u, 2 * q)
         y = rt.mul_lo64(v, w) - rt.mul_lo64(rt.mul_hi64(v, ws), q)
         x = C.join(up + y, up + 2 * q - y)
     return x

@@ -83,8 +83,8 @@ def _stage_plain(x, sparse: bool):
     w, ws = C.twiddle_row(5, x.device)
     u, v = C.pairs(x, 5)
     tw, tws = C.pairs(w[None], 5)[0], C.pairs(ws[None], 5)[0]
-    up = rt.lazy_reduce(u, 2 * C.Q)
-    y = _sparse_shoup(v, tw, tws) if sparse else rt.mulmod_shoup(v, tw, tws, C.Q)
+    up = rt.plain.lazy_reduce(u, 2 * C.Q)
+    y = _sparse_shoup(v, tw, tws) if sparse else rt.plain.mulmod_shoup(v, tw, tws, C.Q)
     return C.join(up + y, up + 2 * C.Q - y)
 
 
@@ -101,7 +101,7 @@ def _step_plain(x, variant: str):
         return _stage_plain(x, sparse=variant == "v13")
     w, ws = C.twiddle_row(5, x.device)
     if variant in ("v1", "v11"):
-        return rt.mulmod_shoup(x, w, ws, C.Q)
+        return rt.plain.mulmod_shoup(x, w, ws, C.Q)
     if variant in ("v2", "v10"):
         return rt.mul_hi64(x, ws)
     if variant == "v3":
@@ -114,7 +114,7 @@ def _step_plain(x, variant: str):
     if variant == "v6":
         return x.reshape(-1, C.N // 128, 128).roll(32, dims=-1).reshape(x.shape)
     if variant == "v7":
-        return rt.lazy_reduce(x, 4 * C.Q)
+        return rt.plain.lazy_reduce(x, 4 * C.Q)
     if variant == "v8":
         return x + C.swap32(x)
     if variant == "v9":

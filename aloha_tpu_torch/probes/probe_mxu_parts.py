@@ -165,7 +165,7 @@ def _fold59_wide(v, b: int, c):
 def _fold_final(w):
     """W < 2^64 -> [0, q0): (W mod 2^59) + q0 - (W >> 59) delta, then a
     conditional subtract."""
-    return rt.lazy_reduce((w & MASK59) + C.Q - ((w >> 59) & 31) * DELTA, C.Q)
+    return rt.plain.lazy_reduce((w & MASK59) + C.Q - ((w >> 59) & 31) * DELTA, C.Q)
 
 
 def _shoup(x, w, ws):

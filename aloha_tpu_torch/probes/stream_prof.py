@@ -90,7 +90,7 @@ def stage_modes_plain(x, mode: str, reps: int):
         else:
             for s in range(C.LOGN):
                 w, ws = C.twiddle_row(s, x.device)
-                x = rt.lazy_reduce(x, 2 * C.Q) + rt.mulmod_shoup(x, w, ws, C.Q)
+                x = rt.plain.lazy_reduce(x, 2 * C.Q) + rt.plain.mulmod_shoup(x, w, ws, C.Q)
     return x
 
 

@@ -121,9 +121,9 @@ def lane_stages_plain(x, mode: str, nstages: int, reps: int):
                 continue
             w, ws = C.twiddle_row(0 if mode == "statT" else s % C.LOGN, x.device)
             (wi, wj), (wsi, wsj) = C.pairs(w[None], sh), C.pairs(ws[None], sh)
-            up = rt.lazy_reduce(u, 2 * C.Q)
-            x = C.join(up + rt.mulmod_shoup(v, wi, wsi, C.Q),
-                       up + 2 * C.Q - rt.mulmod_shoup(v, wj, wsj, C.Q))
+            up = rt.plain.lazy_reduce(u, 2 * C.Q)
+            x = C.join(up + rt.plain.mulmod_shoup(v, wi, wsi, C.Q),
+                       up + 2 * C.Q - rt.plain.mulmod_shoup(v, wj, wsj, C.Q))
     return x
 
 

@@ -24,14 +24,16 @@ families (a span nests in the span it was opened in, on one thread):
 
 - `aloha.he.<op>`: a public `he_torch` op (`rotate` nests a `galois`);
 - `aloha.rns.<fn>`: an `rns_torch` ALU entry point called from outside
-  `rns_torch` (addmod, submod, mulmod, modred, mulmod_shoup, halfmod): the
-  Python and aten dispatch of the limb arithmetic;
-- `aloha.pack.<what>`: a layout copy (the limbs stacked back, a key-switch's
-  packed operands, stacked keys);
+  `rns_torch` (lazy_reduce, addmod, submod, mulmod, modred, mulmod_shoup,
+  halfmod), or its `rns_torch.plain` form (the references' aten code):
+  the host dispatch of the limb arithmetic (on the card the entry point's
+  one `aloha.kernel.rns` launch inside it);
+- `aloha.pack.<what>`: a layout copy (the limbs stacked back on the CPU, a
+  key-switch's packed operands, stacked keys);
 - `aloha.gather.ntt_domain_aut`: an NTT-domain automorphism gather;
 - `aloha.kernel.<wrapper>`: a wrapper call that reaches a hand kernel, one
   a launch its `.launches` counts (ks_head, ks_tail, ntt, ntt_with_tables,
-  ntt_grid, ntt_mxu, ntt_mxu_chain, aut);
+  ntt_grid, ntt_mxu, ntt_mxu_chain, aut, rns);
 - `aloha.build.<what>`: a cache filled (twiddle and kernel tables, gather
   maps, a prepared key, the kernel library): none in a steady state.
 

@@ -5,13 +5,13 @@
 the bits of the accelerator's uint64 words.  Every instruction runs where
 its operands lie: `vntt`/`vintt` through `ops/ntt_stream.transform` at
 M = 1, nb = 1 (`csrc/ntt.cu` on the card), `vaut` through `ops/aut`
-(`csrc/aut.cu`), the ALU through `rns_torch` (plain PyTorch on either
-device, as XLA computed it outside the Pallas kernels).
+(`csrc/aut.cu`), the ALU through `rns_torch` (one launch of
+`csrc/rns.cu` an instruction on the card, plain PyTorch on the CPU).
 
 The TPU path jits a whole program into one XLA executable
 (`jax_backend.make_executable`).  Here `make_executable` returns a cached
 callable that replays the decoded program eagerly: one launch per
-transform and a chain of small elementwise launches per ALU instruction.
+transform and per ALU instruction.
 
 Words outside the moduli's range reach a launch through DMA.  The ALU
 gives the NumPy oracle's word for every uint64 operand (`rns_torch`); an

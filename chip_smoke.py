@@ -35,6 +35,11 @@ Phases, each printing its own line; any failure exits nonzero:
      automorphism, the tail over shared, batched and single keys) also in
      a CUDA-graph burst, and a tail that takes a cluster beside the same
      launch forced onto one CTA a polynomial (equal words);
+     rns (csrc/rns.cu, one launch over both limbs) on a ciphertext part of
+     the benchmark's requests, B = 256, L = 2, N = 8192: a mul_plain part
+     (the plaintext expanded over the batch, stride 0), a hom_add part and
+     the rescale's product by values a limb, each against rns_torch.plain
+     (aten code) on the same card tensors, timed beside its bytes;
      then ntt at n = 2, 16, 128, 1024, 2048, 4096, 8192 and 16384, both
      directions, M = 1, 3 and 4 (the three-limb ring's L+1 moduli), nb = 1,
      131, 132, 133 and 264, on words at
@@ -231,6 +236,8 @@ BABY_STEPS = list(range(1, G))
 GIANT_STEPS = [G * i for i in range(1, (D + G - 1) // G)]
 SERVE_STEPS = BABY_STEPS + GIANT_STEPS  # the rotation keys of a request
 REQUESTS = 3
+RNS_B = 256  # ciphertexts of the rns cases: a benchmark request's batch
+RNS_MAIN = f"mul_plain part B={RNS_B} L=2"  # rns's case in the kernels line
 ENTROPY_TRIALS = 3  # timings of the entropy phase's draws and set-up, each source
 BENCH = dict(batch=256, chain_k=64)
 SHARD_NB = 64  # polynomials of the shard phase
@@ -647,6 +654,13 @@ def mxu_work(nb: int, M: int, k: int = 1, n: int = 8192):
     return nb * M * n * 16 + M * tables, 2 * nb * M * k * macs, "int8"
 
 
+def rns_work(tensor_words: int, words: int, ops_per_word: int):
+    """One csrc/rns.cu launch: each word of its tensor operands read once (a
+    plaintext broadcast over the batch once), each of its `words` output
+    words written once, `ops_per_word` INT32 instructions each."""
+    return (tensor_words + words) * 8, words * ops_per_word, "int32"
+
+
 def bound(work):
     """(µs, "bytes" or "operations"): the larger of the bytes over the HBM
     rate and the operations over their peak.  `ops` may be a dict of
@@ -799,6 +813,24 @@ def phase_kernels(card: str, dev):
             case("ntt_mxu_chain", label,
                  lambda: ntt_mxu.chain(xc, mod[m], root, 3, inv),
                  lambda: ntt_mxu.chain_plain(xc, mod[m], root, 3, inv), mxu_work(16, 1, 3))
+    # rns: he_torch's elementwise stages on one ciphertext part of the
+    # benchmark's requests (B = RNS_B, L = 2, one launch over both limbs)
+    # against the plain path's aten code on the same card tensors
+    from aloha_tpu_torch import rns_torch as rt
+
+    part, other, pt = rand((RNS_B, n), mod[:L]), rand((RNS_B, n), mod[:L]), rand((n,), mod[:L])
+    part, other = part.transpose(0, 1).contiguous(), other.transpose(0, 1).contiguous()
+    inv = tuple(pow(mod[L], -1, q) for q in mod[:L])
+    words = RNS_B * L * n
+    for label, op, operands, tensor_words, ops in (
+            (RNS_MAIN, "mulmod", (part, pt.expand_as(part)), words + L * n,
+             2 * ELEM_OPS + MULMOD_OPS),
+            (f"hom_add part B={RNS_B} L={L}", "addmod", (part, other), 2 * words, 3 * ELEM_OPS),
+            (f"rescale x q^-1 B={RNS_B} L={L}", "mulmod", (part, inv), words,
+             2 * ELEM_OPS + MULMOD_OPS)):
+        case("rns", label, lambda: getattr(rt, op)(*operands, mod[:L]),
+             lambda: getattr(rt.plain, op)(*operands, mod[:L]),
+             rns_work(tensor_words, words, ops))
     ntt_shapes(dev, results)
     mxu_shapes(card, dev, results)
     return results
@@ -1156,7 +1188,7 @@ def _serve(card: str, dev, label: str, generator, n_requests: int, envelope):
     from aloha_tpu_torch import he_torch as ht
     from aloha_tpu_torch.config import DEFAULT_CONFIG as CFG
     from aloha_tpu_torch.ops import ks_kernel as ksk_ops
-    from aloha_tpu_torch.ops import ntt_stream
+    from aloha_tpu_torch.ops import ntt_stream, rns_kernel
 
     n, S = CFG.n, CFG.n // 2
     cpu = torch.device("cpu")
@@ -1182,7 +1214,7 @@ def _serve(card: str, dev, label: str, generator, n_requests: int, envelope):
 
     # the main path: counts start at 0 here
     counters = {"ntt": ntt_stream.transform, "ks_head": ksk_ops.ks_head,
-                "ks_tail": ksk_ops.ks_tail}
+                "ks_tail": ksk_ops.ks_tail, "rns": rns_kernel.elementwise}
     for fn in counters.values():
         fn.launches = 0
     baby = [ksk[s] for s in BABY_STEPS]
@@ -2560,6 +2592,7 @@ def main():
         "ntt_grid": ("aloha_tpu_torch/csrc/ntt.cu", "aloha_tpu/ops/ntt_pallas.py:378",
                      None, f"fwd q0 nb={GRID_NB} n={n}"),
         "aut": ("aloha_tpu_torch/csrc/aut.cu", "tools/probe_aut_kernel.py:102", None, AUT_MAIN),
+        "rns": ("aloha_tpu_torch/csrc/rns.cu", None, None, RNS_MAIN),
         "probe_ops": ("aloha_tpu_torch/csrc/probe_ops.cu", "tools/op_probe.py:263", None,
                       f"v0 nb={PROBE_NB} reps={PROBE_REPS}"),
         "probe_fwd_reps": ("aloha_tpu_torch/csrc/probe_stages.cu", "tools/stream_prof3.py:29",

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from aloha_tpu_torch import _build, he_torch as ht, ntt_torch, profiling
 from aloha_tpu_torch.config import DEFAULT_CONFIG, HEConfig
-from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream
+from aloha_tpu_torch.ops import aut, ks_kernel, ntt_mxu, ntt_pallas, ntt_stream, rns_kernel
 
 torch.set_num_threads(2)
 
@@ -214,14 +214,16 @@ def test_span_as_a_context_manager(monkeypatch):
 #: the wrappers whose `.launches` count launches of a hand kernel
 WRAPPERS = (ks_kernel.ks_head, ks_kernel.ks_tail, ntt_stream.transform,
             ntt_stream.transform_with_tables, ntt_pallas.transform, ntt_mxu.transform,
-            ntt_mxu.chain, aut.automorphism)
+            ntt_mxu.chain, aut.automorphism, rns_kernel.elementwise)
 
 
-#: spans a request of each of the benchmark's request shapes (L = 2), by family
+#: spans a request of each of the benchmark's request shapes (L = 2) on the
+#: card, by family: each elementwise stage one `aloha.rns.*` span over both
+#: limbs with one `aloha.kernel.rns` launch in it, and no per-limb stack
 SPANS_A_REQUEST = {
-    "matvec16": {"he": 51, "rns": 130, "pack": 76, "gather": 28, "kernel": 6},
-    "rotsum": {"he": 36, "rns": 48, "pack": 48, "gather": 12, "kernel": 24},
-    "dotprod": {"he": 39, "rns": 68, "pack": 63, "gather": 13, "kernel": 28},
+    "matvec16": {"he": 51, "rns": 68, "pack": 9, "gather": 28, "kernel": 74},
+    "rotsum": {"he": 36, "rns": 24, "pack": 24, "gather": 12, "kernel": 48},
+    "dotprod": {"he": 39, "rns": 37, "pack": 27, "gather": 13, "kernel": 65},
 }
 
 
